@@ -5,10 +5,11 @@ reference. It imports ``torch`` and never ``jax``, and nothing of
 ``fcdgan_tpu``: what it needs of that package's framework-free modules it
 keeps as its own trimmed copies, each under the same module path.
 
-This slice ports the scene serving path (``tools/infer.py``, mode ``scene``):
-the eval-mode siamese Segmentor over a device-resident scene pair, with the
-narrow full-resolution 3x3 convolutions on a hand-written CUDA kernel
-(``ops/conv3x3.py`` + ``csrc/conv3x3.cu``).
+Ported so far: scene serving (``tools/infer.py``, mode ``scene``) and USSS
+training (``demos/demo_usss.py``). Three hand-written CUDA kernels sit on
+these paths: ``ops/conv3x3.py`` (the narrow full-resolution 3x3 convs),
+``ops/pool_bwd.py`` (every 2x2 max-pool backward) and ``ops/fused_ssim.py``
+(each MS-SSIM level), with their sources in ``csrc/``.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; see
 ``utils/device.py``.

@@ -1,6 +1,14 @@
-"""Command-line parsing of dataclass configs.
+"""Driver configs and their command-line parsing.
 
-Copy of ``parse_cli`` from the JAX package's ``config.py`` (:290-345): every
+``USSSConfig`` carries the JAX package's ``USSSConfig`` defaults
+(config.py:19-99, the constants of Demo_USSS.py:33-76) and ``device``
+(``cuda`` unless the caller asks for ``cpu``). Its ``platform``,
+``learning_rate`` (which no USSS phase reads: the schedules set every
+rate), ``device_normalize`` and ``prefetch_depth`` fields have no
+counterpart: the resident cache normalizes on the device and its batches
+are device gathers, with no host prefetch. ``unported`` names the options whose values
+the port does not run yet; the driver raises ``NotImplementedError`` for
+them. ``parse_cli`` is a copy of the JAX package's (:290-345): every
 dataclass field becomes ``--field-name``, parsed by its resolved annotation
 (bools accept 1/true/yes, tuples are comma-separated and cast per element).
 """
@@ -11,6 +19,92 @@ import argparse
 import dataclasses
 import types
 import typing
+from typing import List, Optional, Tuple
+
+
+@dataclasses.dataclass
+class USSSConfig:
+    """Unsupervised mode (defaults: Demo_USSS.py:33-76)."""
+
+    dir: str = "/data"
+    image_x_name: str = "T1.tif"
+    image_y_name: str = "T2.tif"
+    ref_name: str = "ref.tif"
+    outdir: Optional[str] = None  # None -> dir
+    ext: str = ""
+    cmap_name: str = "ChangeDensity"
+    stats_name: str = "stats"
+
+    init_num_epochs_g: int = 50
+    init_num_epochs_s: int = 50
+    num_epochs: int = 100
+    batch_size: int = 10
+    lr_scale: float = 1.0        # multiplies every phase schedule
+    lr_epoch_scale: float = 1.0  # schedules read epoch / lr_epoch_scale
+
+    perception_weight: float = 0.4
+    l1_weight: float = 0.65
+    ssim_weight: float = 0.0
+    perception_per_band: bool = True
+    perception_layer: int = 1
+
+    patch_size: Tuple[int, int] = (220, 220)
+    overlap_padding: Tuple[int, int] = (10, 10)
+    gt_map: Tuple[int, int] = (1, 2)
+    pre_map: Tuple[int, int] = (0, 1)
+    prob_thresh: float = 0.5
+    write_color: bool = True
+    discriminator_continuous: bool = True
+    tips: str = "eval_patch"
+
+    msssim_weights: Optional[Tuple[float, ...]] = None
+    device: str = "cuda"            # 'cpu' only on request
+    compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
+    siamese_stats: str = "joint"    # 'split' is not ported
+    density_dtype: str = "float32"  # quantized downloads are not ported
+    scene_cache: str = "auto"       # 'auto'/'on': device-resident scene
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch
+    remat: bool = False
+    ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
+    debug_nans: bool = False
+    profile_dir: Optional[str] = None
+    seed: int = 0
+    checkpoint_every: int = 0
+    resume: bool = False
+    n_devices: Optional[int] = None
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    vgg_npz: Optional[str] = None
+    require_vgg: bool = False
+    log_tensorboard: bool = True
+    save_checkpoints: bool = True
+    progress: bool = True
+
+
+def unported(cfg: USSSConfig) -> List[str]:
+    """The options of ``cfg`` whose values the port does not run yet."""
+    out = []
+    if cfg.siamese_stats != "joint":
+        out.append(f"--siamese-stats {cfg.siamese_stats}")
+    if cfg.remat:
+        out.append("--remat")
+    if cfg.tail not in ("auto", "short"):
+        out.append(f"--tail {cfg.tail}")
+    if cfg.scene_cache not in ("auto", "on"):
+        out.append(f"--scene-cache {cfg.scene_cache} (window and host loaders)")
+    if cfg.n_devices or cfg.coordinator_address or cfg.num_processes:
+        out.append("multi-device and multi-host training (--n-devices, "
+                   "--coordinator-address, --num-processes)")
+    if cfg.checkpoint_every or cfg.resume:
+        out.append("periodic checkpoints and resume (--checkpoint-every, --resume)")
+    if cfg.density_dtype != "float32":
+        out.append(f"--density-dtype {cfg.density_dtype}")
+    if cfg.profile_dir:
+        out.append("--profile-dir")
+    if cfg.debug_nans:
+        out.append("--debug-nans")
+    return out
 
 
 def _parse_bool(s: str) -> bool:

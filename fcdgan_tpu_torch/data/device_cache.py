@@ -1,12 +1,15 @@
-"""Device-resident scene pair: whole-scene stitched density on the GPU.
+"""Device-resident scene pair: training batches and the stitched density.
 
-Counterpart of ``DeviceSceneCache`` in the JAX package's
-``data/device_cache.py`` (:239-441, with the ``prep``/``run`` bodies of
-``_scene_jits``, :77-236). The zero-padded raw scene pair is uploaded once.
-Per chunk of tiles the device gathers each tile's fixed canvas at its
-precomputed origin (``TileGrid.canvas_origins``), normalizes per band,
-zeroes what lies outside the tile's write window, runs the Segmentor, crops
-each tile's stride-sized interior and writes it into a device canvas. The
+Counterpart of ``DeviceSceneCache`` and ``IndexBatchLoader`` in the JAX
+package's ``data/device_cache.py`` (:33-45, :239-441, with the ``prep`` and
+``run`` bodies of ``_scene_jits``, :77-236). The zero-padded raw scene pair
+(and the reference raster, when there is one) is uploaded once. A tile is
+gathered on the device from its fixed canvas origin
+(``TileGrid.canvas_origins``), normalized per band, and zeroed outside the
+tile's write window. Training batches are (item, weight) index pairs from
+``IndexBatchLoader`` (``loader``), turned into device tiles by ``complete``.
+For serving, per chunk of tiles the Segmentor runs, each tile's
+stride-sized interior is cropped and written into a device canvas, and the
 finished raster is downloaded once.
 
 Chunks are batch-exact: ``ceil(n / batch_size)`` chunks of ``batch_size``
@@ -25,6 +28,30 @@ from .normalize import Normalize
 # bytes the resident raw scene pair may take on the device;
 # rasters are held as float32 there
 SCENE_CACHE_MAX_BYTES = 4096 * 10**6
+
+
+class IndexBatchLoader:
+    """Epoch iterator of (item, weight) batches (JAX ``IndexBatchLoader``
+    with the order logic of its base ``BatchLoader``, pipeline.py:41-107):
+    a seeded numpy shuffle of ``n_items`` ids per epoch, so the same seed
+    gives the JAX package's batch order, and the last partial batch at its true size (the
+    reference's ``drop_last=False``, JAX ``tail='short'``). The wrap-padded
+    tail (``tail='pad'``) is not ported."""
+
+    def __init__(self, n_items: int, batch_size: int, shuffle: bool = False,
+                 seed: int = 0):
+        self.n = n_items
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        order = np.arange(self.n)
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for start in range(0, self.n, self.batch_size):
+            idx = order[start:start + self.batch_size]
+            yield {"item": idx.astype(np.int64), "weight": np.ones(len(idx), np.float32)}
 
 
 def serve_chunks(n: int, bs: int) -> np.ndarray:
@@ -61,6 +88,8 @@ class DeviceSceneCache:
 
         self.px = padded(dataset.raster_x)
         self.py = padded(dataset.raster_y)
+        rr = dataset.raster_ref
+        self.pref = padded(rr) if rr is not None else None
         self.origins = grid.canvas_origins()
         self._org = torch.from_numpy(self.origins.astype(np.int64)).to(self.device)
         self._wins = torch.from_numpy(grid.write_windows().astype(np.int64)).to(self.device)
@@ -73,12 +102,14 @@ class DeviceSceneCache:
     @staticmethod
     def fits(dataset) -> bool:
         hp, wp = dataset.grid.padded_shape()
-        bands = sum(r.nband for r in (dataset.raster_x, dataset.raster_y))
+        rasters = (dataset.raster_x, dataset.raster_y, dataset.raster_ref)
+        bands = sum(r.nband for r in rasters if r is not None)
         return hp * wp * bands * 4 <= SCENE_CACHE_MAX_BYTES
 
-    def tiles(self, ids: torch.Tensor):
-        """Normalized (B, C, ph, pw) channels_last f32 tiles x, y of ``ids``
-        (the ``prep`` body, device_cache.py:87-123)."""
+    def _gather(self, ids: torch.Tensor, with_ref: bool = False):
+        """NHWC f32 tiles of ``ids``: normalized x and y, zero outside each
+        write window, and the raw reference tile (the ``prep`` body,
+        device_cache.py:87-123)."""
         ph, pw = self.grid.canvas_shape()
         org = self._org[ids]
         win = self._wins[ids]                                     # (x0, y0, w, h)
@@ -95,7 +126,32 @@ class DeviceSceneCache:
         zero = torch.zeros((), device=self.device)
         x = torch.where(mask, (self.px[rows, cols] - mx) / sx, zero)
         y = torch.where(mask, (self.py[rows, cols] - my) / sy, zero)
+        if not with_ref:
+            return x, y, None
+        if self.pref is None:
+            ref = torch.zeros((len(ids), ph, pw, 1), device=self.device)
+        else:
+            ref = self.pref[rows, cols]
+        return x, y, ref
+
+    def tiles(self, ids: torch.Tensor):
+        """Normalized (B, C, ph, pw) channels_last f32 tiles x, y of ``ids``."""
+        x, y, _ = self._gather(ids)
         return x.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)
+
+    def complete(self, batch) -> dict:
+        """An ``IndexBatchLoader`` batch -> the device batch of the train
+        steps: NHWC f32 ``x``, ``y``, ``ref`` (B, ph, pw, 1), int64 ``item``
+        and f32 ``weight`` (device_cache.py:344-354)."""
+        item = torch.from_numpy(np.asarray(batch["item"], np.int64)).to(self.device)
+        weight = torch.from_numpy(np.asarray(batch["weight"], np.float32)).to(self.device)
+        x, y, ref = self._gather(item, with_ref=True)
+        return {"x": x, "y": y, "ref": ref, "item": item, "weight": weight}
+
+    def loader(self, batch_size: int, shuffle: bool = False,
+               seed: int = 0) -> IndexBatchLoader:
+        """Epoch batches over this scene's tiles, for ``complete``."""
+        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed)
 
     @torch.no_grad()
     def stitched_density(self, model, batch_size: int = 10) -> np.ndarray:

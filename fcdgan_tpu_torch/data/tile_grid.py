@@ -85,6 +85,13 @@ class TileGrid:
         write = (x_ori, y_ori, rxe - rxs, rye - rys)
         return core, read, write
 
+    def interior_sizes(self) -> np.ndarray:
+        """(n_tiles, 2) int32 (core_h, core_w) of every item: each tile's
+        interior is ``canvas[pad_y : pad_y + core_h, pad_x : pad_x + core_w]``,
+        so the train steps build its mask on the device from these sizes."""
+        return np.array([(s[3], s[2]) for s in (self.slices(i)[0] for i in range(len(self)))],
+                        np.int32).reshape(-1, 2)
+
     def canvas_shape(self) -> Tuple[int, int]:
         """(height, width) of the fixed zero-padded tile canvas."""
         return self.patch_size[1], self.patch_size[0]

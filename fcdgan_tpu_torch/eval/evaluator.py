@@ -1,16 +1,20 @@
-"""Accumulating confusion-matrix metrics (parity: reference metrics.py:6-85).
+"""Confusion-matrix metrics on the host and on the device.
 
-Copy of the numpy ``Evaluator`` of the JAX package's ``eval/evaluator.py``,
-trimmed to what scene serving reports. ``add_batch_map`` carries the value
-indirection of the USSS references, coded {1 unchanged, 2 changed} against
-{0, 1} predictions (metrics.py:67-72; Demo_USSS.py:64-65).
+Copy of the JAX package's ``eval/evaluator.py`` (parity: reference
+metrics.py:6-85), trimmed to what serving and USSS training report.
+``add_batch_map`` carries the value indirection of the USSS references,
+coded {1 unchanged, 2 changed} against {0, 1} predictions (metrics.py:67-72;
+Demo_USSS.py:64-65). ``confusion_update`` is the on-device counterpart
+(evaluator.py:109-135): the (C, C) matrix of one batch, so the train steps
+add it up on the device and the host reads it once per epoch.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 class Evaluator:
@@ -54,3 +58,24 @@ class Evaluator:
         for i, gv in enumerate(gt_map):
             for j, pv in enumerate(pre_map):
                 self.confusion_matrix[i, j] += np.sum((gt == gv) & (pre == pv))
+
+    def add_confusion(self, cm) -> None:
+        """Merge an externally accumulated (C, C) matrix (device epoch totals)."""
+        self.confusion_matrix += np.asarray(cm, dtype=np.float64)
+
+
+def confusion_update(gt: torch.Tensor, pre: torch.Tensor, gt_map: Sequence[float],
+                     pre_map: Sequence[float], valid: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """(C, C) float32 confusion matrix of one batch, on ``gt``'s device:
+    row i counts ``gt == gt_map[i]``, column j ``pre == pre_map[j]``, each
+    position weighted by ``valid`` (a same-shape {0, 1} mask) when given."""
+    if len(gt_map) != len(pre_map):
+        raise ValueError("gt_map and pre_map need one code per class")
+    gt = gt.reshape(-1)
+    pre = pre.reshape(-1)
+    w = torch.ones_like(gt, dtype=torch.float32) if valid is None else \
+        valid.reshape(-1).to(torch.float32)
+    rows = torch.stack([(gt == g).to(torch.float32) for g in gt_map])
+    cols = torch.stack([(pre == p).to(torch.float32) for p in pre_map])
+    return torch.einsum("in,jn,n->ij", rows, cols, w)

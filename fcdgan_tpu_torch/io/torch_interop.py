@@ -1,15 +1,19 @@
-"""Carry the JAX package's Segmentor weights into the port's state_dict.
+"""Carry the JAX package's Segmentor and Generator weights into the port.
 
-The port's Segmentor uses the reference ``Module.py`` key names
-(``inc.double_conv.0.weight``, ...), so a reference ``SModel.pkl`` loads
-strictly with ``load_state_dict``. ``units`` is a copy of the JAX package's
-unit map (``io/torch_interop.py::units("segmentor")``): (unit type, torch
-prefix, flax path) in reference order. ``DoubleConv`` Sequential indices are
-{0 conv, 1 bn, 3 conv, 4 bn} (Module.py:25-32, 43-46, 59-64, 85, 101-111).
+The port's models use the reference ``Module.py`` key names
+(``inc.double_conv.0.weight``, ``block2.conv1.weight``, ...), so reference
+``SModel.pkl`` / ``GModel.pkl`` state_dicts load strictly with
+``load_state_dict``. ``units`` is a copy of the JAX package's unit map
+(``io/torch_interop.py::units``, :51-78): (unit type, torch prefix, flax
+path) in reference order. ``DoubleConv`` Sequential indices are {0 conv,
+1 bn, 3 conv, 4 bn} (Module.py:25-32, 43-46, 59-64, 85, 101-111); the
+Generator is block1 Sequential(conv9x9, PReLU), block2-6 ResidualBlock
+(conv1/bn1/prelu/conv2/bn2), block7 Sequential(conv, bn), block8 conv9x9
+(Module.py:145-158, 174-181).
 
 Layouts: flax kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
 scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var;
-``num_batches_tracked`` is emitted as int64 0.
+PReLU ``alpha`` -> ``weight``; ``num_batches_tracked`` is emitted as int64 0.
 """
 
 from __future__ import annotations
@@ -31,17 +35,31 @@ def _doubleconv_units(tp: str, fp: str) -> List[Tuple[str, str, str]]:
 
 def units(kind: str = "segmentor") -> List[Tuple[str, str, str]]:
     """(unit type, torch prefix, flax path) triples, in reference order."""
-    if kind != "segmentor":
-        raise NotImplementedError(
-            f"only the segmentor is ported so far, not {kind!r} (ROADMAP.md)")
-    u = _doubleconv_units("inc.double_conv", "DoubleConv_0")
-    for i in range(4):
-        u += _doubleconv_units(f"down{i + 1}.maxpool_conv.1.double_conv",
-                               f"Down_{i}/DoubleConv_0")
-    for i in range(4):
-        u += _doubleconv_units(f"up{i + 1}.conv.double_conv", f"Up_{i}/DoubleConv_0")
-    u.append(("conv", "outc.conv", "OutConv_0/TorchConv_0/Conv_0"))
-    return u
+    if kind == "segmentor":
+        u = _doubleconv_units("inc.double_conv", "DoubleConv_0")
+        for i in range(4):
+            u += _doubleconv_units(f"down{i + 1}.maxpool_conv.1.double_conv",
+                                   f"Down_{i}/DoubleConv_0")
+        for i in range(4):
+            u += _doubleconv_units(f"up{i + 1}.conv.double_conv", f"Up_{i}/DoubleConv_0")
+        u.append(("conv", "outc.conv", "OutConv_0/TorchConv_0/Conv_0"))
+        return u
+    if kind == "generator":
+        u = [("conv", "block1.0", "TorchConv_0/Conv_0"), ("prelu", "block1.1", "PReLU_0")]
+        for i in range(5):
+            b, f = f"block{i + 2}", f"ResidualBlock_{i}"
+            u += [("conv", f"{b}.conv1", f"{f}/TorchConv_0/Conv_0"),
+                  ("bn", f"{b}.bn1", f"{f}/BatchNorm_0/BatchNorm_0"),
+                  ("prelu", f"{b}.prelu", f"{f}/PReLU_0"),
+                  ("conv", f"{b}.conv2", f"{f}/TorchConv_1/Conv_0"),
+                  ("bn", f"{b}.bn2", f"{f}/BatchNorm_1/BatchNorm_0")]
+        u += [("conv", "block7.0", "TorchConv_1/Conv_0"),
+              ("bn", "block7.1", "BatchNorm_0/BatchNorm_0"),
+              ("conv", "block8", "TorchConv_2/Conv_0")]
+        return u
+    raise NotImplementedError(
+        f"only the segmentor and the generator are ported so far, not {kind!r} "
+        "(ROADMAP.md)")
 
 
 def _get(tree: Dict, path: str):
@@ -50,13 +68,16 @@ def _get(tree: Dict, path: str):
     return np.array(tree, np.float32)  # a writable copy
 
 
-def from_jax_variables(variables: Dict) -> Dict[str, torch.Tensor]:
+def from_jax_variables(variables: Dict, kind: str = "segmentor") -> Dict[str, torch.Tensor]:
     """``{'params': ..., 'batch_stats': ...}`` nested dicts of arrays (a JAX
-    Segmentor's variables, converted to numpy) -> the port's state_dict."""
+    Segmentor's or Generator's variables, converted to numpy) -> the port's
+    state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
-    for typ, tkey, fpath in units("segmentor"):
-        if typ == "conv":
+    for typ, tkey, fpath in units(kind):
+        if typ == "prelu":
+            out[f"{tkey}.weight"] = torch.from_numpy(_get(params, f"{fpath}/alpha"))
+        elif typ == "conv":
             k = _get(params, f"{fpath}/kernel")
             out[f"{tkey}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1))))

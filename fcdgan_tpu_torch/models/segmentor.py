@@ -1,9 +1,12 @@
-"""Siamese U-Net change segmentor, eval mode (parity: reference Module.py:93-140).
+"""Siamese U-Net change segmentor (parity: reference Module.py:93-140).
 
-Counterpart of the JAX package's ``models/segmentor.py``. The shared-weight
-encoder sees both temporal images stacked on the batch axis in one pass
-(segmentor.py:43-58; in eval mode identical to two passes); each level's
-two halves are concatenated on channels for the decoder skips; the decoder
+Counterpart of the JAX package's ``models/segmentor.py`` with its default
+``siamese_stats='joint'``. The shared-weight encoder sees both temporal
+images stacked on the batch axis in one pass (segmentor.py:43-58): in eval
+mode identical to two passes, in train mode the BatchNorm statistics are
+joint over both dates. The reference's per-branch statistics
+(``siamese_stats='split'``) are not ported (ROADMAP.md). Each level's two
+halves are concatenated on channels for the decoder skips; the decoder
 is bilinear (channels 64-128-256-512-512, Up 2048/1024/512/256 -> 512/256/
 128/128) and a 1-channel sigmoid gives the change density in [0, 1].
 
@@ -39,10 +42,6 @@ class Segmentor(nn.Module):
         self.outc = OutConv(128, n_outchannels)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode Segmentor (training, --bn-mode train) is not ported "
-                "yet (ROADMAP.md); call .eval()")
         n = x1.shape[0]
         x = torch.cat([x1, x2], dim=0).to(
             self.compute_dtype).contiguous(memory_format=torch.channels_last)

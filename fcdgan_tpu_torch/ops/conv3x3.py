@@ -21,6 +21,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +39,26 @@ def gate(h: int, w: int, c_in: int, c_out: int) -> bool:
 
 
 def pack_weight(weight_oihw: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """torch (C_out, C_in, 3, 3) conv weight -> contiguous HWIO in ``dtype``."""
-    return weight_oihw.detach().permute(2, 3, 1, 0).to(dtype).contiguous()
+    """torch (C_out, C_in, 3, 3) conv weight -> contiguous HWIO in ``dtype``
+    (differentiable: the caller detaches it where no gradient is wanted)."""
+    return weight_oihw.permute(2, 3, 1, 0).to(dtype).contiguous()
+
+
+def conv3x3_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     needs: Tuple[bool, bool] = (True, True)):
+    """(dx, dw) of ``conv3x3(x, w)`` for NHWC ``x`` and ``dy`` and HWIO
+    ``w`` (None where ``needs`` says so): one ``aten.convolution_backward``
+    on the channels_last NCHW views, the counterpart of the XLA-conv backward
+    of the JAX package's custom VJP (conv3x3.py:140-143). No kernel of the
+    port: the JAX package wrote none for it either."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last),
+        x.permute(0, 3, 1, 2),
+        w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [bool(needs[0]), bool(needs[1]), False])
+    return (None if dx is None else dx.permute(0, 2, 3, 1),
+            None if dw is None else dw.permute(2, 3, 1, 0))
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -38,12 +38,38 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
 )
 
 
-def _group(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other"
+def device_summary(prof, wall_s: float, groups=GROUPS, top: int = 12) -> dict:
+    """Device time of a ``torch.profiler`` window: busy time (the union of
+    the kernel and copy intervals), idle share of ``wall_s``, ms by coarse group
+    (first matching group of ``groups``, else "other") and the ``top``
+    kernels by name."""
+    by_name = {}
+    spans = []
+    for ev in prof.events():
+        # device-side ranges of user annotations (e.g. "Optimizer.step#Adam.step")
+        # span kernels counted on their own
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy = 0.0
+    end = -1.0
+    for s, e in sorted(spans):  # union of kernel intervals, in us
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+
+    def group(name):
+        low = name.lower()
+        return next((g for g, keys in groups if any(k in low for k in keys)), "other")
+
+    by_group = {}
+    for name, ms in by_name.items():
+        by_group[group(name)] = by_group.get(group(name), 0.0) + ms
+    return {"device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / (wall_s * 1e3),
+            "groups_ms": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [[n[:90], ms] for n, ms in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]}
 
 
 def main(argv=None):
@@ -95,31 +121,12 @@ def main(argv=None):
         cache.stitched_density(net, args.batch_size)
         unprofiled = time.perf_counter() - t0
 
-    by_name = {}
-    spans = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-            spans.append((ev.time_range.start, ev.time_range.end))
-    busy = 0.0
-    end = -1.0
-    for s, e in sorted(spans):  # union of kernel intervals, in us
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    groups = {}
-    for name, ms in by_name.items():
-        groups[_group(name)] = groups.get(_group(name), 0.0) + ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
     print(json.dumps({
         "device": torch.cuda.get_device_name(device), "scene": args.scene,
         "batch_size": args.batch_size, "chunks": -(-len(ds) // args.batch_size),
         "tool_px_per_s": out["px_per_s"], "tool_seconds": out["seconds"],
         "upload_ms": upload_ms, "pass_ms_unprofiled": unprofiled * 1e3,
-        "pass_ms_profiled": wall * 1e3, "device_busy_ms": busy / 1e3,
-        "idle_share": 1.0 - (busy / 1e3) / (wall * 1e3),
-        "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+        "pass_ms_profiled": wall * 1e3, **device_summary(prof, wall, top=args.top),
     }))
 
 

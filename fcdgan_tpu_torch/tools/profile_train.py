@@ -1,0 +1,120 @@
+"""Where the time of one USSS joint step goes on the GPU: a torch.profiler window.
+
+Builds the training configuration of ``chip_smoke.py``'s train phase (a
+synthetic 1024x1024 3-band uint16 scene, patch 220, padding 10, batch 10,
+bf16, seeded full-width Generator and Segmentor, the random VGG16), runs
+four warm joint steps (the kernels build, cuDNN picks its algorithms), times
+``--steps`` more with a synchronize after each, then runs one joint step
+under ``torch.profiler``. Prints one JSON line: the step's wall time with
+and without the profiler, the device's busy time and idle share over the
+profiled step, and device time by coarse group (the three kernels of the
+port, the other convolutions forward and backward, BN/elementwise, pooling
+and upsampling, the optimizer, gather/copy) and by kernel name (top
+``--top``).
+
+Run on a machine with a CUDA card, from the repository root:
+
+    python -m fcdgan_tpu_torch.tools.profile_train [--steps 8]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from .profile_serve import device_summary
+
+GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("conv3x3 kernel", ("conv3x3_nhwc_kernel",)),
+    ("pool_bwd kernel", ("pool_bwd_nhwc_kernel",)),
+    ("fused_ssim kernel", ("ssim_tile_kernel", "ssim_plane_mean_kernel")),
+    ("cudnn/cutlass conv fwd+bwd", ("conv", "xmma", "implicit", "cutlass", "sm90_",
+                                    "gemm", "wgrad", "dgrad", "nchwtonhwc",
+                                    "nhwctonchw")),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("pool/upsample", ("pool", "upsample", "interp")),
+    ("gather/copy/cat", ("index", "gather", "copy", "cat", "memcpy", "memset", "fill")),
+    ("elementwise/BN/reduce", ("elementwise", "vectorized", "reduce", "addcmul", "relu",
+                               "sigmoid", "where", "batch_norm")),
+)
+
+
+def main(argv=None):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..data.datasets import ScenePairDataset
+    from ..data.device_cache import DeviceSceneCache
+    from ..data.normalize import Normalize
+    from ..data.stats import dataset_meanstd
+    from ..data.synthetic import make_usss_scene
+    from ..models.generator import Generator
+    from ..models.segmentor import Segmentor
+    from ..models.vgg import VGG16Weights, load_vgg16_params
+    from ..train.optim import adam
+    from ..train.steps import PerceptionConfig, USSSSteps
+    from ..utils.device import resolve_device
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", type=int, default=1024)
+    ap.add_argument("--batch-size", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
+        make_usss_scene(work, args.scene, args.scene, 3, seed=1, dtype=np.uint16)
+        stats_ds = ScenePairDataset(os.path.join(work, "T1.tif"), os.path.join(work, "T2.tif"),
+                                    patch_size=(220, 220), overlap_padding=(0, 0))
+        scaler = Normalize(*dataset_meanstd(os.path.join(work, "s1.txt"),
+                                            os.path.join(work, "s2.txt"), stats_ds))
+        ds = ScenePairDataset(os.path.join(work, "T1.tif"), os.path.join(work, "T2.tif"),
+                              ref_path=os.path.join(work, "ref.tif"), enhance=scaler,
+                              patch_size=(220, 220), overlap_padding=(10, 10))
+        cache = DeviceSceneCache(ds, scaler, device)
+    torch.manual_seed(0)
+    net_g = Generator(3, compute_dtype=torch.bfloat16).to(device)
+    net_s = Segmentor(3, compute_dtype=torch.bfloat16).to(device)
+    steps = USSSSteps(net_g, net_s, adam(net_g.parameters()), adam(net_s.parameters()),
+                      VGG16Weights(load_vgg16_params(), device),
+                      PerceptionConfig((29,), True, dtype=torch.bfloat16),
+                      0.4, 0.65, 0.0, ds.grid.interior_sizes(), (10, 10))
+    batch = {"item": np.arange(args.batch_size), "weight": np.ones(args.batch_size, np.float32)}
+
+    def step():
+        db = cache.complete(batch)
+        m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+        torch.cuda.synchronize(device)
+        return m
+
+    for _ in range(4):
+        step()
+    times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(device), "scene": args.scene,
+        "batch_size": args.batch_size, "tiles_per_step": args.batch_size,
+        "step_ms_unprofiled": [t * 1e3 for t in times],
+        "step_ms_unprofiled_median": statistics.median(times) * 1e3,
+        "step_ms_profiled": wall * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        **device_summary(prof, wall, groups=GROUPS, top=args.top),
+    }))
+
+
+if __name__ == "__main__":
+    main()

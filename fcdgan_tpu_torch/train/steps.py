@@ -1,0 +1,171 @@
+"""Train and inference steps of the unsupervised mode (JAX ``train/steps.py``).
+
+``USSSSteps`` holds the Generator, the Segmentor, their optimizers and the
+loss configuration, and runs one batch of each reference phase
+(Demo_USSS.py:124-400) plus inference (:404-473). Batches are NHWC float32
+tensors on the models' device, as in the JAX package; the models see their
+NCHW channels_last views. A step returns its metrics as device tensors (the
+confusion matrix included), so the epoch loop reads them once per epoch.
+
+Gradient flow, as in the JAX package:
+  * G pretrain (:182-198): cmap is zero and the target is data, so the
+    perception target branch runs forward only (``target_grad=False``).
+  * S init (:200-224): G runs in train mode under ``no_grad``, which
+    updates its BatchNorm running statistics without stepping it.
+  * Joint (:226-253): the reference zeroes G's gradients before both of its
+    backwards and S's between them, so gradG = d(A + NetLoss)/dG and
+    gradS = d(NetLoss)/dS, with A = gen + pw*perc + sw*ssim and
+    NetLoss = A + l1w*l1. l1 has no G dependence, so ONE forward and ONE
+    backward of NetLoss give gradS and dA/dG; G's gradients are then
+    doubled. Then both Adam updates run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..eval.evaluator import confusion_update
+from ..models.vgg import VGG16Weights
+from ..ops import losses as L
+from .optim import set_lr
+
+
+@dataclasses.dataclass(frozen=True)
+class PerceptionConfig:
+    feature_layers: Tuple[int, ...]
+    per_band: bool
+    dtype: Optional[torch.dtype] = None  # bfloat16 under mixed precision
+
+
+def interior_valid_mask(item: torch.Tensor, interior_sizes: torch.Tensor,
+                        canvas_hw: Tuple[int, int], pad: Tuple[int, int]) -> torch.Tensor:
+    """(B, H, W) {0, 1} float mask of each tile's stitched interior, built on
+    the device from the per-item core sizes (steps.py:57-76)."""
+    h, w = canvas_hw
+    padx, pady = pad
+    sizes = interior_sizes[item]  # (B, 2) = (core_h, core_w)
+    rows = torch.arange(h, device=item.device).view(1, h, 1)
+    cols = torch.arange(w, device=item.device).view(1, 1, w)
+    ch = sizes[:, 0].view(-1, 1, 1)
+    cw = sizes[:, 1].view(-1, 1, 1)
+    return ((rows >= pady) & (rows < pady + ch)
+            & (cols >= padx) & (cols < padx + cw)).to(torch.float32)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+class USSSSteps:
+    def __init__(self, generator, segmentor, opt_g, opt_s, vgg: VGG16Weights,
+                 perception: PerceptionConfig, perception_weight: float,
+                 l1_weight: float, ssim_weight: float, interior_sizes: np.ndarray,
+                 pad: Tuple[int, int], gt_map: Sequence[int] = (1, 2),
+                 pre_map: Sequence[int] = (0, 1), prob_thresh: float = 0.5,
+                 msssim_weights: Optional[Sequence[float]] = None,
+                 ssim_metric: bool = True):
+        if not ssim_metric and ssim_weight != 0:
+            raise ValueError("ssim_metric=False requires ssim_weight == 0")
+        self.G, self.S = generator, segmentor
+        self.opt_g, self.opt_s = opt_g, opt_s
+        self.vgg = vgg
+        self.pc = perception
+        self.pw, self.l1w, self.sw = perception_weight, l1_weight, ssim_weight
+        self.interior = torch.as_tensor(np.asarray(interior_sizes, np.int64),
+                                        device=vgg.device)
+        self.pad = tuple(pad)
+        self.gt_map, self.pre_map = tuple(gt_map), tuple(pre_map)
+        self.prob_thresh = prob_thresh
+        self.msw = tuple(msssim_weights) if msssim_weights is not None else None
+        self.ssim_metric = ssim_metric
+
+    def _cnet(self, y, y_fake, cmap, w, target_grad=True):
+        return L.cnet_loss(
+            y, y_fake, cmap, self.vgg, self.pc.feature_layers,
+            perception_per_band=self.pc.per_band, msssim_weights=self.msw,
+            sample_weight=w, ssim_grad=self.sw != 0, perception_dtype=self.pc.dtype,
+            perception_target_grad=target_grad, compute_ssim=self.ssim_metric)
+
+    def _confusion(self, cmap, ref, item, w):
+        """Interior-only confusion of the thresholded map (strict ``>``,
+        Demo_USSS.py:430-431), padded samples weighted out."""
+        with torch.no_grad():
+            cmask = (cmap[..., 0] > self.prob_thresh).to(torch.float32)
+            valid = interior_valid_mask(item, self.interior, tuple(cmap.shape[1:3]),
+                                        self.pad) * w.view(-1, 1, 1)
+            return confusion_update(ref[..., 0], cmask, self.gt_map, self.pre_map, valid)
+
+    @staticmethod
+    def _metrics(loss, gen, l1, perc, ssim) -> Dict[str, torch.Tensor]:
+        return {"NetLoss": loss.detach(), "generator_loss": gen.detach(),
+                "l1_loss": l1.detach(), "perception_loss": perc.detach(),
+                "ssim_loss": ssim.detach()}
+
+    # -- phase 1: generator pretrain (Demo_USSS.py:124-189) -----------------
+    def g_pretrain(self, x, y, w, lr) -> Dict[str, torch.Tensor]:
+        self.G.train()
+        cmap = torch.zeros(x.shape[:3] + (1,), dtype=x.dtype, device=x.device)
+        y_fake = _nhwc(self.G(_nchw(x)))
+        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w, target_grad=False)
+        loss = gen + self.pw * perc + self.sw * ssim
+        self.opt_g.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(self.opt_g, lr)
+        self.opt_g.step()
+        return self._metrics(loss, gen, l1, perc, ssim)
+
+    # -- phase 2: segmentor init, G forwarded but not stepped (:192-286) ----
+    def s_init(self, x, y, ref, item, w, lr) -> Dict[str, torch.Tensor]:
+        self.G.train()
+        self.S.train()
+        with torch.no_grad():  # train-mode G forward: its BN running stats move
+            y_fake = _nhwc(self.G(_nchw(x)))
+        cmap = _nhwc(self.S(_nchw(x), _nchw(y)))
+        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w)
+        loss = gen + self.l1w * l1 + self.pw * perc + self.sw * ssim
+        self.opt_s.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(self.opt_s, lr)
+        self.opt_s.step()
+        m = self._metrics(loss, gen, l1, perc, ssim)
+        m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
+        return m
+
+    # -- phase 3: joint alternating with G-gradient accumulation (:289-400) --
+    def joint(self, x, y, ref, item, w, lr_g, lr_s) -> Dict[str, torch.Tensor]:
+        self.G.train()
+        self.S.train()
+        y_fake = _nhwc(self.G(_nchw(x)))
+        cmap = _nhwc(self.S(_nchw(x), _nchw(y)))
+        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w)
+        a = gen + self.pw * perc + self.sw * ssim  # == LossG
+        net_loss = a + self.l1w * l1
+        self.opt_g.zero_grad(set_to_none=True)
+        self.opt_s.zero_grad(set_to_none=True)
+        net_loss.backward()
+        with torch.no_grad():  # dLossG/dG + dNetLoss/dG
+            for p in self.G.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(2.0)
+        set_lr(self.opt_g, lr_g)
+        set_lr(self.opt_s, lr_s)
+        self.opt_g.step()
+        self.opt_s.step()
+        m = self._metrics(net_loss, gen, l1, perc, ssim)
+        m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
+        return m
+
+    # -- inference (:404-473) -------------------------------------------------
+    @torch.no_grad()
+    def infer(self, x, y) -> torch.Tensor:
+        """Eval-mode change density of NCHW tiles, (B, 1, H, W) float32."""
+        self.S.eval()
+        return self.S(x, y)
