@@ -25,9 +25,20 @@ Phases, each printed on its own line; any failure exits non-zero:
                         aten.max_pool2d_with_indices_backward
              fused_ssim the 5 MS-SSIM levels of one step (N=10, 3 bands),
                         f32, atol 2e-5
+             channel_sums, channel_sums_pair  every distinct BN input of one
+                        USSS joint step (batch 10, bf16) and the
+                        Discriminator's three of a WSSS step, each with its
+                        count per step, recorded from train-mode forwards of
+                        the models; within 1e-5 of the sum of magnitudes per
+                        channel; library torch.var_mean and
+                        torch.batch_norm_backward_reduce
+             phase_pool every max-pool forward of a USSS joint step (recorded
+                        the same way), bf16 and f32, bit-equal to its plain
+                        version and to F.max_pool2d
   serve    tools.infer.main on a 2048x2048 3-band uint16 scene with a seeded
            full-width Segmentor (bf16): output rasters, density in [0, 1],
-           finite oa/f1, conv3x3 launched 3 times per chunk; px_per_s
+           finite oa/f1, conv3x3 launched 3 times and phase_pool 4 times per
+           chunk (the other kernels not at all); px_per_s
   parity   one chunk of 2 tiles through the port in f32 on the card and on
            the CPU (plain versions): max abs density difference <= 1e-3
   train    demos.demo_usss.main on a 1024x1024 3-band uint16 scene (patch
@@ -44,6 +55,20 @@ Phases, each printed on its own line; any failure exits non-zero:
            1e-4), and the step's own 5 MS-SSIM levels before the relu: the
            kernel against the plain version on the card's level inputs (atol
            2e-5), the card's (ssim, cs) tables against the CPU's (atol 1e-4)
+  wsss     demos.demo_wsss.main on a synthetic WHU set of 150 changed and
+           150 unchanged 200x200 RGB uint8 slices (the JAX package's
+           production settings: batch 15, unc batch 50, bf16, RGB perception
+           at layer 1), 1 G-pretrain + 3 adversarial epochs, then the
+           train-mode inference over the 150 changed slices: every artifact,
+           finite losses and metrics, strict loads, and each kernel's
+           launches equal to the count derived from the models; seconds per
+           phase, adversarial epochs/s over the warm epochs 2-3, slice Mpx/s,
+           peak device memory
+  wsss_parity  one adversarial step on 2 pairs in f32 from the same seeded
+           weights on the card and on the CPU: losses (rtol 1e-4), S and D
+           gradient norms (rtol 1e-3), BN running stats of S and D (atol
+           1e-4), and the BN kernels against the plain sums on the step's own
+           BN inputs (1e-5 of the sum of magnitudes)
 
 Then one JSON line of kernel records, and as the last line
 {"ok": true, "device": {...}}. f32 comparisons run with TF32 off (cuDNN and
@@ -51,11 +76,13 @@ cuBLAS), set once for the whole script. The scratch files go to
 chiprun_out/chip_smoke/ inside the checkout and are removed at the end.
 """
 
+import collections
 import contextlib
 import functools
 import json
 import math
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -86,6 +113,12 @@ BATCH = 10
 PATCH = 220
 PAD = 10
 TRAIN_EPOCHS = (1, 1, 3)  # G pretrain, S init, joint
+WSSS_SLICES = (150, 150)  # changed, unchanged
+WSSS_SIZE = 200
+WSSS_BATCH = 15
+WSSS_UNC_BATCH = 50
+WSSS_EPOCHS = (1, 3)  # G pretrain, adversarial
+SOURCES = ["conv3x3", "pool_bwd", "fused_ssim", "channel_sums", "phase_pool"]
 
 
 def phase(name, payload):
@@ -171,7 +204,7 @@ def build_phase():
     from fcdgan_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    logs = build.build(["conv3x3", "pool_bwd", "fused_ssim"])
+    logs = build.build(SOURCES)
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
@@ -317,28 +350,188 @@ def ssim_rows(torch):
     return rows
 
 
-def derived_launches(torch, n_tiles):
-    """Each kernel's launches in the train phase, from the models' structure:
-    the gated 3x3 convs of G and S (at the resolution each runs at), the
-    Segmentor's Down pools, the VGG pools before the deepest tap, the
-    MS-SSIM levels as large as the window, and the steps per epoch."""
+@contextlib.contextmanager
+def record_calls(module, name, clone=False):
+    """Within the block, every call of ``module.name`` is kept in the yielded
+    list as (args, result); ``clone`` keeps copies of the tensor arguments."""
+    orig, calls = getattr(module, name), []
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        kept = tuple(a.detach().clone() if clone and hasattr(a, "detach") else a
+                     for a in args)
+        calls.append((kept, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def step_shapes(torch):
+    """The NHWC shapes of the BN inputs and max-pool inputs of one USSS joint
+    step at batch 10 (G on 10 tiles, S on the stacked pair, the per-band VGG
+    on the stacked [target; generated] planes) and of the Discriminator's BN
+    inputs in a WSSS adversarial step (15 pairs stacked, 200 px, three D
+    forwards), each with its count per step: recorded from train-mode
+    forwards of the models on the card (their kernel launches are set-up and
+    the main paths' counts start from 0 later)."""
+    from fcdgan_tpu_torch.models import layers
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import (VGG16Weights, select_feature_layers,
+                                             vgg16_features, vgg16_random_params)
+    from fcdgan_tpu_torch.ops import pool_bwd as pool_mod
+
+    def nhwc(t):
+        return (t.shape[0], t.shape[2], t.shape[3], t.shape[1])
+
+    bf16 = torch.bfloat16
+    usss_bn, pools, d_bn = collections.Counter(), collections.Counter(), collections.Counter()
+    with torch.no_grad():
+        tile = torch.zeros((BATCH, 3, PATCH, PATCH), device="cuda")
+        with record_calls(layers, "bn_train") as bns, \
+                record_calls(pool_mod, "phase_pool") as pls:
+            Generator(3, compute_dtype=bf16).cuda().train()(tile)
+            Segmentor(3, compute_dtype=bf16).cuda().train()(tile, tile)
+            planes = torch.zeros((2 * 3 * BATCH, PATCH, PATCH, 1), device="cuda")
+            vgg16_features(planes, VGG16Weights(vgg16_random_params(0), "cuda"),
+                           select_feature_layers(1), bf16)
+        usss_bn.update(nhwc(args[0]) for args, _ in bns)
+        pools.update(tuple(args[0].shape) for args, _ in pls)
+        sl = torch.zeros((WSSS_BATCH, 3, WSSS_SIZE, WSSS_SIZE), device="cuda")
+        with record_calls(layers, "bn_train") as bns:
+            Discriminator(3, compute_dtype=bf16).cuda().train()(sl, sl)
+        d_bn.update({nhwc(args[0]): 3 for args, _ in bns})  # 3 D forwards per step
+    torch.cuda.empty_cache()
+    bn = [("usss_joint", s, k) for s, k in usss_bn.items()]
+    bn += [("wsss_adversarial", s, k) for s, k in d_bn.items()]
+    return bn, [("usss_joint", s, k) for s, k in pools.items()]
+
+
+def bn_rows(torch, shapes):
+    """channel_sums and channel_sums_pair at every distinct BN input, bf16:
+    within 1e-5 of the sum of magnitudes per channel of the plain version."""
+    from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
+                                                   channel_sums_pair_plain,
+                                                   channel_sums_plain)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = torch.bfloat16
+    for step, shape, count in shapes:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3).to(dt)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        xf, dyf = x.float().reshape(-1, c), dy.float().reshape(-1, c)
+        x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        zero = torch.zeros(c, device="cuda")
+        one = torch.ones(c, device="cuda")
+        cases = (
+            ("channel_sums", lambda: channel_sums(x, square=True),
+             lambda: channel_sums_plain(x, square=True),
+             lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
+             (xf.abs().sum(0), xf.square().sum(0)), x.numel() * dt.itemsize, 3 * x.numel()),
+            ("channel_sums_pair", lambda: channel_sums_pair(dy, x),
+             lambda: channel_sums_pair_plain(dy, x),
+             lambda: torch.batch_norm_backward_reduce(dy_nchw, x_nchw, zero, one, None,
+                                                      True, False, False),
+             (dyf.abs().sum(0), (dyf * xf).abs().sum(0)), 2 * x.numel() * dt.itemsize,
+             3 * x.numel()))
+        for name, kernel, plain, library, scales, in_bytes, flops in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            ratio = max(((g - w).abs() / (1e-5 * sc + 1e-30)).max().item()
+                        for g, w, sc in zip(got, want, scales))
+            nbytes = in_bytes + 2 * c * 4
+            bound_ms, bound_by = roofline(nbytes, flops, "float32")
+            try:
+                library_ms, library_error = cuda_ms(torch, library), None
+            except (RuntimeError, TypeError) as e:  # the yardstick only
+                library_ms, library_error = None, str(e)[:200]
+            row = {"name": name, "layer": f"{step} {list(shape)}", "step": step,
+                   "dtype": "bfloat16", "shape": list(shape), "per_step": count,
+                   "max_abs_err": err, "err_over_tol": ratio,
+                   "tol": "1e-5 * sum|x| per channel",
+                   "ms": cuda_ms(torch, kernel), "call_ms": call_ms(torch, kernel),
+                   "plain_ms": cuda_ms(torch, plain, reps=5), "library_ms": library_ms,
+                   "library_error": library_error, "bytes": nbytes, "flops": flops,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            phase("kernels", row)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{name} {shape}: error {ratio} x the tolerance")
+            rows.append(row)
+        del x, dy, xf, dyf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_pool_rows(torch, F, shapes):
+    """phase_pool at every max-pool forward of a step, bf16 and f32:
+    bit-equal to its plain version and to F.max_pool2d."""
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool, phase_pool_plain
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for step, shape, count in shapes:
+            n, h, w, c = shape
+            # post-ReLU activations, as the pools see them: many tied zeros
+            x = torch.relu(torch.randn(shape, generator=gen, device="cuda")).to(dt)
+            x_nchw = x.permute(0, 3, 1, 2)
+            got, want = phase_pool(x), phase_pool_plain(x)
+            lib = F.max_pool2d(x_nchw, 2).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want) and torch.equal(got, lib)
+            # the 2Ho x 2Wo input region read once, the output written once;
+            # 3 compares/selects per output element
+            nbytes = (n * 2 * (h // 2) * 2 * (w // 2) * c + got.numel()) * dt.itemsize
+            bound_ms, bound_by = roofline(nbytes, 3 * got.numel(), "float32")
+            row = {"name": "phase_pool", "layer": f"{step} {list(shape)}", "step": step,
+                   "dtype": dtype_name, "shape": list(shape), "per_step": count,
+                   "max_abs_err": err, "tol": 0.0, "bit_equal_plain_and_library": ok,
+                   "ms": cuda_ms(torch, lambda: phase_pool(x)),
+                   "call_ms": call_ms(torch, lambda: phase_pool(x)),
+                   "plain_ms": cuda_ms(torch, lambda: phase_pool_plain(x), reps=5),
+                   "library_ms": cuda_ms(torch, lambda: F.max_pool2d(x_nchw, 2)),
+                   "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+            phase("kernels", row)
+            if not (ok and err == 0):
+                raise AssertionError(f"phase_pool {shape} {dtype_name}: not bit-equal "
+                                     f"(max abs err {err})")
+            rows.append(row)
+            del x, got, want, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _gated(torch, module, hw):
+    from fcdgan_tpu_torch.ops.conv3x3 import gate
+
+    return sum(1 for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3)
+               and m.stride == (1, 1) and gate(hw, hw, m.in_channels, m.out_channels))
+
+
+def _model_counts(torch, side):
+    """Per forward at ``side`` px: gated 3x3 convs of G and S, BNs of G, S
+    and D, S's Down pools, the VGG pools before the deepest tap, and the
+    MS-SSIM levels as large as the window."""
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.models.vgg import _CFG, select_feature_layers
-    from fcdgan_tpu_torch.ops.conv3x3 import gate
 
-    def gated(module, hw):
-        return sum(1 for m in module.modules()
-                   if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3)
-                   and gate(hw, hw, m.in_channels, m.out_channels))
-
-    net_g, net_s = Generator(3), Segmentor(3)
-    g_convs = gated(net_g, PATCH)
+    net_g, net_s, net_d = Generator(3), Segmentor(3), Discriminator(3)
     blocks = [(net_s.inc, 0), (net_s.down1, 1), (net_s.down2, 2), (net_s.down3, 3),
               (net_s.down4, 4), (net_s.up1, 3), (net_s.up2, 2), (net_s.up3, 1),
               (net_s.up4, 0)]
-    s_convs = sum(gated(b, PATCH >> level) for b, level in blocks)
-    s_pools = sum(1 for name, _ in net_s.named_children() if name.startswith("down"))
     deepest = max(select_feature_layers(1))
     seq, vgg_pools = 0, 0
     for c in _CFG:
@@ -346,21 +539,79 @@ def derived_launches(torch, n_tiles):
             break
         vgg_pools += c == "M"
         seq += 1 if c == "M" else 2
-    side, levels = PATCH, 0
+    levels, hw = 0, side
     for _ in range(5):  # the default 5-level MS-SSIM
-        levels += side >= 11
-        side = (side + side % 2) // 2
-    steps = -(-n_tiles // BATCH)
-    g_steps = TRAIN_EPOCHS[0] * steps
-    gs_steps = (TRAIN_EPOCHS[1] + TRAIN_EPOCHS[2]) * steps
-    per_step = {"conv3x3": {"g_pretrain": g_convs, "s_init_or_joint": g_convs + s_convs,
-                            "inference_chunk": s_convs},
-                "pool_bwd": {"g_pretrain": vgg_pools, "s_init_or_joint": s_pools + vgg_pools},
-                "fused_ssim": {"step": levels}}
-    total = {"conv3x3": g_steps * g_convs + gs_steps * (g_convs + s_convs) + steps * s_convs,
-             "pool_bwd": g_steps * vgg_pools + gs_steps * (s_pools + vgg_pools),
-             "fused_ssim": (g_steps + gs_steps) * levels}
-    return total, per_step
+        levels += hw >= 11
+        hw = (hw + hw % 2) // 2
+
+    def bns(net):
+        return sum(1 for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d))
+
+    return {"g_convs": _gated(torch, net_g, side),
+            "s_convs": sum(_gated(torch, b, side >> level) for b, level in blocks),
+            "g_bns": bns(net_g), "s_bns": bns(net_s), "d_bns": bns(net_d),
+            "s_pools": sum(1 for name, _ in net_s.named_children() if name.startswith("down")),
+            "vgg_pools": vgg_pools, "levels": levels}
+
+
+def _launch_totals(per_step, n_steps):
+    """Each kernel's launches in a phase: its launches per step of each kind
+    times the number of steps of that kind."""
+    return {name: sum(n * n_steps[kind] for kind, n in kinds.items())
+            for name, kinds in per_step.items()}
+
+
+def derived_launches(torch, n_tiles):
+    """Each kernel's launches in the train phase, from the models' structure
+    (``_model_counts``) and the steps per epoch: a G-pretrain step runs G
+    forward and backward and the VGG on the target (no graph) and on the
+    generated tiles; an S-init step runs G forward without a graph and S and
+    the VGG (one stacked pass) forward and backward; a joint step both nets
+    forward and backward; an inference chunk S in eval mode."""
+    k = _model_counts(torch, PATCH)
+    chunks = -(-n_tiles // BATCH)
+    n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * chunks for e in TRAIN_EPOCHS)),
+                   inference_chunk=chunks)
+    gb, sb = k["g_bns"], k["s_bns"]
+    sp, vp = k["s_pools"], k["vgg_pools"]
+    gs_convs, levels = k["g_convs"] + k["s_convs"], k["levels"]
+    per_step = {
+        "conv3x3": {"g_pretrain": k["g_convs"], "s_init": gs_convs, "joint": gs_convs,
+                    "inference_chunk": k["s_convs"]},
+        "pool_bwd": {"g_pretrain": vp, "s_init": sp + vp, "joint": sp + vp},
+        "fused_ssim": {"g_pretrain": levels, "s_init": levels, "joint": levels},
+        "channel_sums": {"g_pretrain": gb, "s_init": gb + sb, "joint": gb + sb},
+        "channel_sums_pair": {"g_pretrain": gb, "s_init": sb, "joint": gb + sb},
+        "phase_pool": {"g_pretrain": 2 * vp, "s_init": sp + vp, "joint": sp + vp,
+                       "inference_chunk": sp}}
+    return _launch_totals(per_step, n_steps), per_step
+
+
+def derived_wsss_launches(torch):
+    """Each kernel's launches in the wsss phase: a G-pretrain step as in
+    USSS (RGB perception); an adversarial step runs S forward twice and
+    backward through both, D forward three times and backward through all
+    three (two in the D update, one in the S loss), G in eval mode and the
+    VGG (one stacked pass) forward and backward; an inference chunk S in
+    train mode without a graph."""
+    k = _model_counts(torch, WSSS_SIZE)
+    n_c, n_nc = WSSS_SLICES
+    n_steps = {"g_pretrain": WSSS_EPOCHS[0] * -(-n_nc // WSSS_UNC_BATCH),
+               "adversarial": WSSS_EPOCHS[1] * -(-max(n_c, n_nc) // WSSS_BATCH),
+               "inference_chunk": -(-n_c // WSSS_BATCH)}
+    gb, sb, db = k["g_bns"], k["s_bns"], k["d_bns"]
+    sp, vp = k["s_pools"], k["vgg_pools"]
+    per_step = {
+        "conv3x3": {"g_pretrain": k["g_convs"], "adversarial": 2 * k["s_convs"] + k["g_convs"],
+                    "inference_chunk": k["s_convs"]},
+        "pool_bwd": {"g_pretrain": vp, "adversarial": 2 * sp + vp},
+        "fused_ssim": {"g_pretrain": k["levels"], "adversarial": k["levels"]},
+        "channel_sums": {"g_pretrain": gb, "adversarial": 2 * sb + 3 * db,
+                         "inference_chunk": sb},
+        "channel_sums_pair": {"g_pretrain": gb, "adversarial": 2 * sb + 3 * db},
+        "phase_pool": {"g_pretrain": 2 * vp, "adversarial": 2 * sp + vp,
+                       "inference_chunk": sp}}
+    return _launch_totals(per_step, n_steps), per_step
 
 
 def make_model(torch, work, scene):
@@ -400,16 +651,20 @@ def serve_phase(torch, work, smodel):
     import numpy as np
 
     from fcdgan_tpu_torch.data.raster import open_raster
-    from fcdgan_tpu_torch.ops.conv3x3 import conv3x3
     from fcdgan_tpu_torch.tools import infer
 
     argv = ["--dir", work, "--smodel", smodel, "--ref-name", "ref.tif",
             "--batch-size", str(BATCH)]
-    conv3x3.launches = 0
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     out = infer.main(argv)
-    launches = conv3x3.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     n_tiles = math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2
     n_chunks = math.ceil(n_tiles / BATCH)
+    k = _model_counts(torch, PATCH)
+    want = {name: 0 for name in counters}  # eval mode: no BN statistics, no backward
+    want.update(conv3x3=k["s_convs"] * n_chunks, phase_pool=k["s_pools"] * n_chunks)
     density = open_raster(out["density_path"]).read_block()[..., 0]
     checks = {
         "density_exists": os.path.isfile(out["density_path"]),
@@ -419,13 +674,14 @@ def serve_phase(torch, work, smodel):
                                       and density.min() >= 0 and density.max() <= 1),
         "oa_f1_finite": all(isinstance(out.get(k), float) and math.isfinite(out[k])
                             for k in ("oa", "f1")),
-        "launches": launches == 3 * n_chunks,
+        "launches": launches == want,
     }
     warm = infer.main(argv)  # same scene again, everything built and cached
     phase("serve", {"px_per_s": out["px_per_s"], "seconds": out["seconds"],
                     "warm_px_per_s": warm["px_per_s"], "warm_seconds": warm["seconds"],
                     "pixels": out["pixels"], "chunks": n_chunks,
-                    "conv3x3_launches": launches, "oa": out["oa"], "f1": out["f1"],
+                    "launches": launches, "derived_launches": want,
+                    "oa": out["oa"], "f1": out["f1"],
                     "auc": out["auc"], "density_mean": float(density.mean()),
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "checks": checks})
@@ -454,11 +710,15 @@ def parity_phase(torch, smodel, ds, gpu_cache):
 
 
 def kernel_counters():
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums, channel_sums_pair
     from fcdgan_tpu_torch.ops.conv3x3 import conv3x3
     from fcdgan_tpu_torch.ops.fused_ssim import ssim_level
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool
     from fcdgan_tpu_torch.ops.pool_bwd import pool_bwd
 
-    return {"conv3x3": conv3x3, "pool_bwd": pool_bwd, "fused_ssim": ssim_level}
+    return {"conv3x3": conv3x3, "pool_bwd": pool_bwd, "fused_ssim": ssim_level,
+            "channel_sums": channel_sums, "channel_sums_pair": channel_sums_pair,
+            "phase_pool": phase_pool}
 
 
 def train_phase(torch, work):
@@ -621,24 +881,189 @@ def train_parity_phase(torch, tdir):
                              f"{kernel_err}, tables {table_err}")
 
 
+def wsss_phase(torch, work):
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import read_image
+    from fcdgan_tpu_torch.data.synthetic import make_whu_dataset
+    from fcdgan_tpu_torch.demos import demo_wsss
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+
+    root = os.path.join(work, "whu")
+    make_whu_dataset(root, n_changed=WSSS_SLICES[0], n_unchanged=WSSS_SLICES[1],
+                     size=WSSS_SIZE, seed=2)
+    argv = ["--img-dir-x", os.path.join(root, "before"),
+            "--img-dir-y", os.path.join(root, "after"),
+            "--ref-dir", os.path.join(root, "Label"), "--label-dir", root,
+            "--out-g-model-dir", os.path.join(root, "GModel"),
+            "--compute-dtype", "bfloat16", "--batch-size", str(WSSS_BATCH),
+            "--unc-batch-size", str(WSSS_UNC_BATCH), "--perception-layer", "1",
+            "--init-num-epochs-g", str(WSSS_EPOCHS[0]), "--num-epochs", str(WSSS_EPOCHS[1]),
+            "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = demo_wsss.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want, per_step = derived_wsss_launches(torch)
+    names = sorted(n for n in os.listdir(os.path.join(root, "before")) if n.endswith(".tif"))
+    changed = [ln.split(",")[0] for ln in open(os.path.join(root, "label.txt")).read().split()
+               if ln.endswith(",1")]
+    maps_ok = all(
+        read_image(os.path.join(out["out_dir"], n)).shape == (WSSS_SIZE, WSSS_SIZE, 3)
+        and read_image(os.path.join(out["density_dir"], n)).shape == (WSSS_SIZE, WSSS_SIZE, 1)
+        for n in changed)
+    for key, cls in (("smodel_path", Segmentor), ("gmodel_path", Generator),
+                     ("dmodel_path", Discriminator)):  # strict loads
+        cls(3).load_state_dict(torch.load(out[key], weights_only=True), strict=True)
+    ev = out["evaluator"]
+    metrics = {"oa": float(ev.Pixel_Accuracy()), "f1": float(ev.Pixel_F1_score()),
+               "kappa": float(ev.Pixel_Kappa())}
+    losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
+    sec = out["epoch_seconds"]
+    warm = sec["adv"][1:]
+    pairs = out["pairs"]
+    checks = {
+        "slices": len(names) == sum(WSSS_SLICES) and len(changed) == WSSS_SLICES[0],
+        "maps": maps_ok,
+        "artifacts": all(os.path.isfile(out[k]) for k in (
+            "para_path", "smodel_path", "gmodel_path", "dmodel_path")),
+        "epochs": [len(sec["g"]), len(sec["adv"])] == list(WSSS_EPOCHS),
+        "losses_finite": bool(losses) and all(math.isfinite(v) for v in losses),
+        "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
+        "confusion_covers_changed": bool(
+            ev.confusion_matrix.sum() == WSSS_SLICES[0] * WSSS_SIZE ** 2),
+        "launches": launches == want,
+    }
+    phase("wsss", {
+        "seconds": seconds, "pairs": pairs, "slice_px": WSSS_SIZE,
+        "phase_seconds": {"g_pretrain": sum(sec["g"]), "adversarial": sum(sec["adv"]),
+                          "inference": sec["infer"]},
+        "g_epoch_seconds": sec["g"], "adv_epoch_seconds": sec["adv"],
+        "adv_epochs_per_s_warm": len(warm) / sum(warm),
+        "slice_mpx_per_s_warm": 2 * pairs * WSSS_SIZE ** 2 * len(warm) / sum(warm) / 1e6,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "derived_launches": want, "per_step": per_step,
+        "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"wsss checks failed: {checks}")
+    return launches, root
+
+
+def wsss_parity_phase(torch, root):
+    """One adversarial step on 2 pairs in f32 from the same seeded weights,
+    on the card (the kernels) and on the CPU (the plain versions): losses,
+    S and D gradient norms, BN running stats of S and D; and on the card each
+    of the step's own BN statistics (the kernels' outputs, recorded in
+    ``ops.fused_bn``) against the plain sums of the same inputs."""
+    from fcdgan_tpu_torch.data.datasets import WHUPairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceWHUCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.ops import fused_bn
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums_pair_plain, channel_sums_plain
+    from fcdgan_tpu_torch.train import schedules
+    from fcdgan_tpu_torch.train.optim import adam, rmsprop
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, WSSSSteps
+
+    dirs = (os.path.join(root, "before"), os.path.join(root, "after"),
+            os.path.join(root, "Label"), root)
+    scaler = Normalize(*dataset_meanstd(os.path.join(dirs[0], "stats_meanstd.txt"),
+                                        os.path.join(dirs[1], "stats_meanstd.txt"), None))
+    pair_ds = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(0))
+    torch.manual_seed(0)
+    nets0 = (Generator(3), Segmentor(3), Discriminator(3))
+    vggp = vgg16_random_params(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        net_g, net_s, net_d = (type(n)(3) for n in nets0)
+        for a, b in zip((net_g, net_s, net_d), nets0):
+            a.load_state_dict(b.state_dict())
+            a.to(dev)
+        steps = WSSSSteps(net_g, net_s, net_d, adam(net_g.parameters()),
+                          rmsprop(net_s.parameters()), rmsprop(net_d.parameters()),
+                          VGG16Weights(vggp, dev), PerceptionConfig((29,), False),
+                          0.5, 0.0, 0.2, 1.6, 1.0, 1.5, 0.6)
+        cache = DeviceWHUCache(pair_ds, scaler, dev)
+        db = cache.complete_pair({"c_item": [0, 1], "nc_item": [0, 1], "weight": [1.0, 1.0]})
+        with record_calls(fused_bn, "channel_sums", clone=True) as fwd, \
+                record_calls(fused_bn, "channel_sums_pair", clone=True) as bwd:
+            m = steps.adversarial(db["c_x"], db["c_y"], db["c_ref"], db["nc_x"], db["nc_y"],
+                                  db["weight"], schedules.S_ADV_WSSS(0), schedules.D_ADV_WSSS(0))
+        norms = {name: torch.sqrt(sum(p.grad.double().square().sum()
+                                      for p in net.parameters() if p.grad is not None)).item()
+                 for name, net in (("S", net_s), ("D", net_d))}
+        stats = torch.cat([b.detach().cpu().reshape(-1) for net in (net_s, net_d)
+                           for n, b in net.named_buffers() if n.endswith(("mean", "var"))])
+        if dev == "cuda":  # the kernels on the step's own BN inputs
+            kernel_ratio = 0.0
+            for (x,), got in fwd:
+                xf = x.float().reshape(-1, x.shape[-1])
+                for g, w, sc in zip(got, channel_sums_plain(x, True),
+                                    (xf.abs().sum(0), xf.square().sum(0))):
+                    kernel_ratio = max(kernel_ratio,
+                                       ((g - w).abs() / (1e-5 * sc + 1e-30)).max().item())
+            for (a, b), got in bwd:
+                af, bf = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+                for g, w, sc in zip(got, channel_sums_pair_plain(a, b),
+                                    (af.abs().sum(0), (af * bf).abs().sum(0))):
+                    kernel_ratio = max(kernel_ratio,
+                                       ((g - w).abs() / (1e-5 * sc + 1e-30)).max().item())
+            n_calls = (len(fwd), len(bwd))
+        res[dev] = ({k: float(v) for k, v in m.items() if k != "confusion"}, norms, stats)
+        del steps, cache, db, fwd, bwd
+    (mg, ng, sg), (mc, nc, sc) = res["cuda"], res["cpu"]
+    loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    norm_rel = max(abs(ng[k] - nc[k]) / nc[k] for k in nc)
+    stats_err = (sg - sc).abs().max().item()
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and stats_err <= 1e-4
+          and kernel_ratio <= 1.0 and n_calls == (45, 45))
+    phase("wsss_parity", {"pairs": 2, "losses_cuda": mg, "losses_cpu": mc,
+                          "grad_norms_cuda": ng, "grad_norms_cpu": nc,
+                          "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+                          "bn_stats_max_abs": stats_err, "bn_kernel_calls": n_calls,
+                          "bn_kernel_err_over_tol": kernel_ratio,
+                          "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3,
+                                   "bn_stats_abs": 1e-4,
+                                   "bn_kernel": "1e-5 * sum|x| per channel"}, "ok": ok})
+    if not ok:
+        raise AssertionError(f"wsss parity: losses {loss_rel}, grad norms {norm_rel}, "
+                             f"BN stats {stats_err}, BN kernels {kernel_ratio} x tol over "
+                             f"{n_calls} calls")
+
+
 def record(name, source, replaces, rows, launches):
     """One kernel's line of the JSON summary: the sums over its rows of the
-    main path's working type (one serving chunk for conv3x3, one training
-    step for pool_bwd and fused_ssim)."""
+    main path's working type, each row times its count per step (one
+    serving chunk for conv3x3; one USSS joint step for the others, so the
+    Discriminator's channel-sum rows of a WSSS step stay in the per-shape
+    detail)."""
     dt = "bfloat16" if any(r["dtype"] == "bfloat16" for r in rows) else "float32"
-    rows = [r for r in rows if r["dtype"] == dt]
+    rows = [r for r in rows if r["dtype"] == dt and r.get("step", "usss_joint") == "usss_joint"]
     by = {}
     for r in rows:
-        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        k = r.get("per_step", 1)
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + k * r["bound_ms"]
     lib = [r["library_ms"] for r in rows]
+
+    def total(key):
+        return sum(r.get("per_step", 1) * r[key] for r in rows)
+
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": max(by, key=by.get),
-            "library_ms": None if None in lib else sum(lib)}
+            "library_ms": None if None in lib else total("library_ms")}
 
 
 def main():
@@ -658,6 +1083,11 @@ def main():
     build_phase()
     rows = {"conv3x3": conv_rows(torch, F), "pool_bwd": pool_rows(torch, F),
             "fused_ssim": ssim_rows(torch)}
+    bn_shapes, pool_shapes = step_shapes(torch)
+    bn = bn_rows(torch, bn_shapes)
+    rows["channel_sums"] = [r for r in bn if r["name"] == "channel_sums"]
+    rows["channel_sums_pair"] = [r for r in bn if r["name"] == "channel_sums_pair"]
+    rows["phase_pool"] = phase_pool_rows(torch, F, pool_shapes)
 
     work = os.path.join(ROOT, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -672,17 +1102,24 @@ def main():
     torch.cuda.empty_cache()
     launches, tdir = train_phase(torch, work)
     train_parity_phase(torch, tdir)
+    shutil.rmtree(tdir)
+    wsss_launches, wdir = wsss_phase(torch, work)
+    wsss_parity_phase(torch, wdir)
 
-    records = [
-        record("conv3x3", "fcdgan_tpu_torch/csrc/conv3x3.cu",
-               "fcdgan_tpu/ops/pallas/conv3x3.py:103", rows["conv3x3"], launches["conv3x3"]),
-        record("pool_bwd", "fcdgan_tpu_torch/csrc/pool_bwd.cu",
-               "fcdgan_tpu/ops/pallas/pool_bwd.py:120", rows["pool_bwd"], launches["pool_bwd"]),
-        record("fused_ssim", "fcdgan_tpu_torch/csrc/fused_ssim.cu",
-               "fcdgan_tpu/ops/pallas/fused_ssim.py:113", rows["fused_ssim"],
-               launches["fused_ssim"]),
-    ]
-    records[0]["serve_launches"] = serve_launches
+    sites = {"conv3x3": ("conv3x3.cu", "conv3x3.py:103"),
+             "pool_bwd": ("pool_bwd.cu", "pool_bwd.py:120"),
+             "fused_ssim": ("fused_ssim.cu", "fused_ssim.py:113"),
+             "channel_sums": ("channel_sums.cu", "channel_sums.py:106"),
+             "channel_sums_pair": ("channel_sums.cu", "channel_sums.py:133"),
+             "phase_pool": ("phase_pool.cu", "phase_pool.py:121")}
+    records = []
+    for name, (src, site) in sites.items():
+        r = record(name, f"fcdgan_tpu_torch/csrc/{src}", f"fcdgan_tpu/ops/pallas/{site}",
+                   rows[name], launches[name])
+        r["wsss_launches"] = wsss_launches[name]
+        records.append(r)
+    for r in records:
+        r["serve_launches"] = serve_launches[r["name"]]
     summary = {"kernels": records, "card": smi,
                "per_shape": [r for v in rows.values() for r in v],
                "seconds": time.perf_counter() - t_start}

@@ -1,16 +1,19 @@
 """Driver configs and their command-line parsing.
 
-``USSSConfig`` carries the JAX package's ``USSSConfig`` defaults
-(config.py:19-99, the constants of Demo_USSS.py:33-76) and ``device``
-(``cuda`` unless the caller asks for ``cpu``). Its ``platform``,
-``learning_rate`` (which no USSS phase reads: the schedules set every
-rate), ``device_normalize`` and ``prefetch_depth`` fields have no
-counterpart: the resident cache normalizes on the device and its batches
-are device gathers, with no host prefetch. ``unported`` names the options whose values
-the port does not run yet; the driver raises ``NotImplementedError`` for
-them. ``parse_cli`` is a copy of the JAX package's (:290-345): every
-dataclass field becomes ``--field-name``, parsed by its resolved annotation
-(bools accept 1/true/yes, tuples are comma-separated and cast per element).
+``USSSConfig`` and ``WSSSConfig`` carry the JAX package's defaults
+(config.py:19-190, the constants of Demo_USSS.py:33-76 and
+Demo_WSSS.py:31-66) and ``device`` (``cuda`` unless the caller asks for
+``cpu``). The JAX fields ``platform``, ``learning_rate`` (which no phase
+reads: the schedules set every rate), ``device_normalize`` and
+``prefetch_depth`` have no counterpart: the resident caches normalize on
+the device and their batches are device gathers, with no host prefetch.
+Neither have ``eraser_regions`` and ``erase_thresh``, which only the
+unported ``random_eraser`` reads, so their flags are rejected.
+``unported`` and ``unported_wsss`` name the options whose values the port
+does not run yet; the drivers raise ``NotImplementedError`` for them.
+``parse_cli`` is a copy of the JAX package's (:290-345): every dataclass
+field becomes ``--field-name``, parsed by its resolved annotation (bools
+accept 1/true/yes, tuples are comma-separated and cast per element).
 """
 
 from __future__ import annotations
@@ -82,8 +85,71 @@ class USSSConfig:
     progress: bool = True
 
 
-def unported(cfg: USSSConfig) -> List[str]:
-    """The options of ``cfg`` whose values the port does not run yet."""
+@dataclasses.dataclass
+class WSSSConfig:
+    """Weakly supervised mode (defaults: Demo_WSSS.py:31-66)."""
+
+    img_dir_x: str = ""
+    img_dir_y: str = ""
+    ref_dir: str = ""
+    label_dir: str = ""
+    out_g_model_dir: str = ""
+    ext: str = ""
+    out_dir: Optional[str] = None  # None -> {label_dir}/Detection_WSS{ext}
+
+    init_num_epochs_g: int = 50
+    num_epochs: int = 50
+    unc_batch_size: int = 50
+    batch_size: int = 15
+    lr_scale: float = 1.0        # multiplies every phase schedule
+    lr_epoch_scale: float = 1.0  # schedules read epoch / lr_epoch_scale
+    prob_thresh: float = 0.6
+    tips: str = "train"
+
+    perception_weight: float = 0.5
+    ssim_weight: float = 0.0
+    perception_per_band: bool = False
+    perception_layer: int = 1
+
+    g_weight: float = 0.2
+    l1_weight: float = 1.6
+    d_weight: float = 1.0
+    nc_weight: float = 1.5
+
+    write_grey: bool = True
+    write_color: bool = True
+    model_g_reuse: bool = True
+    discriminator_continuous: bool = True
+    stats_name: str = "stats"
+    random_assign: bool = False     # True is not ported
+    random_eraser: bool = False     # True is not ported
+
+    msssim_weights: Optional[Tuple[float, ...]] = None
+    device: str = "cuda"            # 'cpu' only on request
+    compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
+    siamese_stats: str = "joint"    # 'split' is not ported
+    density_dtype: str = "float32"  # quantized downloads are not ported
+    slice_cache: str = "auto"       # 'auto'/'on': device-resident slices
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch
+    remat: bool = False
+    ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
+    debug_nans: bool = False
+    profile_dir: Optional[str] = None
+    seed: int = 0
+    checkpoint_every: int = 0
+    resume: bool = False
+    n_devices: Optional[int] = None
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    vgg_npz: Optional[str] = None
+    require_vgg: bool = False
+    log_tensorboard: bool = True
+    save_checkpoints: bool = True
+    progress: bool = True
+
+
+def _unported_common(cfg) -> List[str]:
     out = []
     if cfg.siamese_stats != "joint":
         out.append(f"--siamese-stats {cfg.siamese_stats}")
@@ -91,8 +157,6 @@ def unported(cfg: USSSConfig) -> List[str]:
         out.append("--remat")
     if cfg.tail not in ("auto", "short"):
         out.append(f"--tail {cfg.tail}")
-    if cfg.scene_cache not in ("auto", "on"):
-        out.append(f"--scene-cache {cfg.scene_cache} (window and host loaders)")
     if cfg.n_devices or cfg.coordinator_address or cfg.num_processes:
         out.append("multi-device and multi-host training (--n-devices, "
                    "--coordinator-address, --num-processes)")
@@ -104,6 +168,26 @@ def unported(cfg: USSSConfig) -> List[str]:
         out.append("--profile-dir")
     if cfg.debug_nans:
         out.append("--debug-nans")
+    return out
+
+
+def unported(cfg: USSSConfig) -> List[str]:
+    """The options of a USSS ``cfg`` whose values the port does not run yet."""
+    out = _unported_common(cfg)
+    if cfg.scene_cache not in ("auto", "on"):
+        out.append(f"--scene-cache {cfg.scene_cache} (window and host loaders)")
+    return out
+
+
+def unported_wsss(cfg: WSSSConfig) -> List[str]:
+    """The options of a WSSS ``cfg`` whose values the port does not run yet."""
+    out = _unported_common(cfg)
+    if cfg.slice_cache not in ("auto", "on"):
+        out.append(f"--slice-cache {cfg.slice_cache} (host slice loaders)")
+    if cfg.random_assign:
+        out.append("--random-assign")
+    if cfg.random_eraser:
+        out.append("--random-eraser")
     return out
 
 

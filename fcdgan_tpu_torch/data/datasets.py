@@ -1,21 +1,34 @@
-"""Overlap-tiled bi-temporal scene pair with a stitched output raster.
+"""Datasets: a tiled scene pair and the WHU slice sets.
 
-Copy of ``ScenePairDataset`` from the JAX package's ``data/datasets.py``
-(parity: GDALDataset, reference data_utils.py:28-236), trimmed to what scene
-serving uses: numpy (h, w, nband) float32 tiles for the statistics pass, and
-the whole-scene density write of the fused serving path. Normalisation
-(``enhance``) applies to the raw read window *before* zero padding, exactly
-like the reference (data_utils.py:110-120), so the canvas padding stays zero.
+Copies of the JAX package's ``data/datasets.py`` classes, trimmed to what
+the port's drivers use:
+
+  * ``ScenePairDataset`` (parity: GDALDataset, reference
+    data_utils.py:28-236): numpy (h, w, nband) float32 tiles for the
+    statistics pass, and the whole-scene density write of the fused serving
+    path. Normalisation (``enhance``) applies to the raw read window *before*
+    zero padding, exactly like the reference (data_utils.py:110-120), so the
+    canvas padding stays zero.
+  * ``WHUDataset`` (parity: WHU_Dataset, data_utils.py:449-563) and
+    ``WHUPairDataset`` (WHU_Dataset_WSS, data_utils.py:570-625): the slice
+    lists selected through ``label.txt``, the changed slices' references
+    binarized, and the changed/unchanged pairing of weak supervision. The
+    augmentation ``transforms`` are not ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import random
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from .raster import create_raster, open_raster
+from .raster import create_raster, open_raster, read_image
 from .tile_grid import TileGrid
+
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".PNG", ".JPG", ".tif")
 
 
 class ScenePairDataset:
@@ -90,3 +103,118 @@ class ScenePairDataset:
         if self._out is not None:
             self._out.close()
             self._out = None
+
+
+class WHUDataset:
+    """Slice-image dataset over before/after/Label dirs + label.txt.
+
+    label_selected: '1' changed only, '0' unchanged only, '-1' all listed,
+    '-2' everything. An item is (x, y, ref, item, label): float32 (h, w, C)
+    slices (normalized when ``scale`` is given), the (h, w, 1) reference
+    binarized ``> 0`` for a slice labeled changed and zero otherwise, and
+    label.txt's three codes."""
+
+    def __init__(self, img_dir_x: str, img_dir_y: str, ref_dir: str, label_dir: str,
+                 label_selected: str = "-1", scale=None):
+        with open(os.path.join(label_dir, "label.txt")) as f:
+            self.label_list = [line.strip("\n").split(",") for line in f.readlines()]
+        names_x = sorted(x for x in os.listdir(img_dir_x)
+                         if self._is_image_file(x) and self._is_image_label(x, label_selected))
+        names_y = sorted(y for y in os.listdir(img_dir_y)
+                         if self._is_image_file(y) and self._is_image_label(y, label_selected))
+        if names_x != names_y:
+            raise ValueError("The multi-temporal images don't match")
+        self.label_list = self._label_list_arrange(names_x)
+        self.img_path_x = [os.path.join(img_dir_x, n) for n in names_x]
+        self.img_path_y = [os.path.join(img_dir_y, n) for n in names_y]
+        self.ref_path = [os.path.join(ref_dir, n) for n in names_x]
+        self.scale = scale
+
+    @staticmethod
+    def _is_image_file(filename: str) -> bool:
+        return any(filename.endswith(e) for e in IMAGE_EXTENSIONS)
+
+    def _is_image_label(self, filename: str, label_selected: str) -> bool:
+        if label_selected == "-2":
+            return True
+        for label_item in self.label_list:
+            if filename in label_item:
+                if label_selected == "-1":
+                    return True
+                return label_item[3] == label_selected
+        return False
+
+    def _label_list_arrange(self, filename_list):
+        out = []
+        for filename in filename_list:
+            tmp = [filename, "-1", "-1", "-2"]
+            for label_item in self.label_list:
+                if filename in label_item:
+                    tmp = label_item
+                    break
+            out.append(tmp)
+        return out
+
+    def __len__(self) -> int:
+        return len(self.img_path_x)
+
+    def get_file_name(self, item: int) -> str:
+        return os.path.split(self.img_path_x[item])[1]
+
+    def raw_ref(self, item: int, hw: Tuple[int, int]) -> np.ndarray:
+        """(h, w, 1) uint8 reference: the label raster ``> 0`` for a changed
+        slice, zeros of the slice's size ``hw`` otherwise
+        (data_utils.py:501-508)."""
+        if int(self.label_list[item][3]) == 1:
+            return (read_image(self.ref_path[item])[..., :1] > 0).astype(np.uint8)
+        return np.zeros(tuple(hw) + (1,), np.uint8)
+
+    def __getitem__(self, item: int):
+        x = read_image(self.img_path_x[item]).astype(np.float32)
+        y = read_image(self.img_path_y[item]).astype(np.float32)
+        ref = self.raw_ref(item, x.shape[:2]).astype(np.float32)
+        if self.scale is not None:
+            x = self.scale(x, switch=1)
+            y = self.scale(y, switch=2)
+        label = np.array([int(v) for v in self.label_list[item][1:]], np.int32)
+        return x, y, ref, item, label
+
+
+class WHUPairDataset:
+    """Changed/unchanged pairing for weak supervision, with the JAX package's
+    ``random_assign=False`` (the drivers' setting; a random partner per item
+    is not ported).
+
+    The class with the larger count is the base; the smaller one is repeated
+    through shuffled orders that ``order_reset`` rebuilds each epoch. ``rng``
+    is consumed exactly as in the JAX package, so the same
+    ``random.Random(seed)`` gives the same pairs."""
+
+    def __init__(self, img_dir_x, img_dir_y, ref_dir, label_dir, scale=None,
+                 rng: Optional[random.Random] = None):
+        self.c_ds = WHUDataset(img_dir_x, img_dir_y, ref_dir, label_dir, scale=scale,
+                               label_selected="1")
+        self.nc_ds = WHUDataset(img_dir_x, img_dir_y, ref_dir, label_dir, scale=scale,
+                                label_selected="0")
+        self.c_len = len(self.c_ds)
+        self.nc_len = len(self.nc_ds)
+        self.rng = rng or random.Random()
+        self.order_reset()
+
+    def order_reset(self):
+        base, other = max(self.c_len, self.nc_len), min(self.c_len, self.nc_len)
+        order_tmp = list(range(other))
+        order = []
+        for _ in range(math.ceil(base / other)):
+            self.rng.shuffle(order_tmp)
+            order = order + order_tmp
+        if self.c_len > self.nc_len:
+            self.nc_order, self.c_order = order[:self.c_len], list(range(self.c_len))
+        else:
+            self.c_order, self.nc_order = order[:self.nc_len], list(range(self.nc_len))
+
+    def __len__(self) -> int:
+        return max(self.c_len, self.nc_len)
+
+    def __getitem__(self, item: int):
+        return self.c_ds[self.c_order[item]], self.nc_ds[self.nc_order[item]]

@@ -1,4 +1,4 @@
-"""Device-resident scene pair: training batches and the stitched density.
+"""Device-resident data: the scene pair of USSS and serving, the WHU slices of WSSS.
 
 Counterpart of ``DeviceSceneCache`` and ``IndexBatchLoader`` in the JAX
 package's ``data/device_cache.py`` (:33-45, :239-441, with the ``prep`` and
@@ -16,9 +16,17 @@ Chunks are batch-exact: ``ceil(n / batch_size)`` chunks of ``batch_size``
 tiles, the last one wrap-padded with the first tiles again (their interiors
 are re-written with identical values). Scenes past ``fits()`` need the
 rolling-window cache, which is not ported yet.
+
+``DeviceWHUCache`` is the counterpart of the JAX ``DeviceWHUCache``
+(:1154-1307): the raw changed and unchanged slice stacks and the binarized
+changed references stay on the device in their stored type, and
+``complete_pair`` / ``complete_unc`` / ``complete_c`` gather and normalize
+the batches of ``IndexPairBatchLoader`` / ``IndexBatchLoader`` there.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -28,30 +36,63 @@ from .normalize import Normalize
 # bytes the resident raw scene pair may take on the device;
 # rasters are held as float32 there
 SCENE_CACHE_MAX_BYTES = 4096 * 10**6
+# bytes the resident raw WHU slice stacks may take on the device, in their
+# stored type (the JAX default of FCDGAN_SLICE_CACHE_MAX_MB, :1253)
+SLICE_CACHE_MAX_BYTES = 4096 * 10**6
 
 
 class IndexBatchLoader:
     """Epoch iterator of (item, weight) batches (JAX ``IndexBatchLoader``
     with the order logic of its base ``BatchLoader``, pipeline.py:41-107):
     a seeded numpy shuffle of ``n_items`` ids per epoch, so the same seed
-    gives the JAX package's batch order, and the last partial batch at its true size (the
-    reference's ``drop_last=False``, JAX ``tail='short'``). The wrap-padded
-    tail (``tail='pad'``) is not ported."""
+    gives the JAX package's batch order, and the last partial batch at its
+    true size (the reference's ``drop_last=False``, JAX ``tail='short'``).
+    ``epoch_hook(epoch)`` runs at the start of each epoch, before the
+    shuffle (pipeline.py:86-95). The wrap-padded tail (``tail='pad'``) is
+    not ported."""
 
     def __init__(self, n_items: int, batch_size: int, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, epoch_hook: Optional[Callable[[int], None]] = None):
         self.n = n_items
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
+        self._epoch_hook = epoch_hook
+
+    def __len__(self) -> int:
+        return -(-self.n // self.batch_size)
 
     def __iter__(self):
+        if self._epoch_hook is not None:
+            self._epoch_hook(self._epoch)
         order = np.arange(self.n)
         if self.shuffle:
             self._rng.shuffle(order)
+        self._epoch += 1
         for start in range(0, self.n, self.batch_size):
             idx = order[start:start + self.batch_size]
             yield {"item": idx.astype(np.int64), "weight": np.ones(len(idx), np.float32)}
+
+
+class IndexPairBatchLoader(IndexBatchLoader):
+    """Index-only loader over a ``WHUPairDataset`` (JAX device_cache.py:
+    1131-1151): each epoch's ``order_reset`` pairing (run by the epoch hook,
+    before the shuffle) resolved to (c_item, nc_item) table lookups."""
+
+    def __init__(self, pair_ds, batch_size: int, shuffle: bool = False, seed: int = 0,
+                 epoch_hook: Optional[Callable[[int], None]] = None):
+        super().__init__(len(pair_ds), batch_size, shuffle=shuffle, seed=seed,
+                         epoch_hook=epoch_hook)
+        self.pair_ds = pair_ds
+
+    def __iter__(self):
+        pair = self.pair_ds
+        for b in super().__iter__():
+            idx = b["item"]
+            yield {"c_item": np.asarray([pair.c_order[int(i)] for i in idx], np.int64),
+                   "nc_item": np.asarray([pair.nc_order[int(i)] for i in idx], np.int64),
+                   "weight": b["weight"]}
 
 
 def serve_chunks(n: int, bs: int) -> np.ndarray:
@@ -172,3 +213,75 @@ class DeviceSceneCache:
                 canvas[r0:r0 + sy, c0:c0 + sx] = core[j]
         hs, ws = self.scene_hw
         return canvas[:hs, :ws].cpu().numpy()
+
+
+class DeviceWHUCache:
+    """Raw WHU slice stacks resident on ``device`` + gathered, normalized
+    batches: changed/unchanged pairs for the adversarial phase, unchanged
+    slices for the G pretrain, changed slices for the final inference."""
+
+    def __init__(self, pair_ds, normalize, device):
+        c_ds, nc_ds = pair_ds.c_ds, pair_ds.nc_ds
+        if not (c_ds and nc_ds):
+            raise ValueError("DeviceWHUCache needs changed and unchanged slices")
+        if not isinstance(normalize, Normalize):
+            raise ValueError("DeviceWHUCache needs a Normalize scale")
+        from .raster import read_image
+
+        probe = read_image(c_ds.img_path_x[0])
+        n = len(c_ds) + len(nc_ds)
+        need = (2 * n + len(c_ds)) * probe.nbytes
+        if need > SLICE_CACHE_MAX_BYTES:
+            raise NotImplementedError(
+                f"the WHU slices take {need / 1e6:.0f} MB on the device, past the "
+                f"resident cache budget ({SLICE_CACHE_MAX_BYTES / 1e6:.0f} MB); the host "
+                "slice loaders are not ported yet (ROADMAP.md, queue A)")
+        self.device = torch.device(device)
+
+        def stack(paths):
+            return torch.from_numpy(np.stack([read_image(p) for p in paths])).to(self.device)
+
+        self._cx, self._cy = stack(c_ds.img_path_x), stack(c_ds.img_path_y)
+        self._nx, self._ny = stack(nc_ds.img_path_x), stack(nc_ds.img_path_y)
+        # the changed slices' references, binarized > 0 (data_utils.py:501-508);
+        # the unchanged slices' references are zero by construction
+        self.cref_host = np.stack([c_ds.raw_ref(i, probe.shape[:2]) for i in range(len(c_ds))])
+        self._cref = torch.from_numpy(self.cref_host).to(self.device)
+        self.nband = probe.shape[-1]
+        self.hw = probe.shape[:2]
+        stats = (normalize.meansX, normalize.stdX, normalize.meansY, normalize.stdY)
+        self._norm = [torch.tensor(v[:self.nband], dtype=torch.float32, device=self.device)
+                      for v in stats]
+
+    def _ids(self, items) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(items, np.int64)).to(self.device)
+
+    def _xy(self, sx: torch.Tensor, sy: torch.Tensor, ids: torch.Tensor):
+        mx, stx, my, sty = self._norm
+        return (sx[ids].float() - mx) / stx, (sy[ids].float() - my) / sty
+
+    def _weight(self, batch) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(batch["weight"], np.float32)).to(self.device)
+
+    def complete_pair(self, batch) -> dict:
+        """An ``IndexPairBatchLoader`` batch -> NHWC f32 ``c_x``, ``c_y``,
+        ``c_ref`` (B, h, w, 1), ``nc_x``, ``nc_y`` and f32 ``weight``
+        (device_cache.py:1216-1223, 1266-1275)."""
+        ci, ni = self._ids(batch["c_item"]), self._ids(batch["nc_item"])
+        c_x, c_y = self._xy(self._cx, self._cy, ci)
+        nc_x, nc_y = self._xy(self._nx, self._ny, ni)
+        return {"c_x": c_x, "c_y": c_y, "c_ref": self._cref[ci].float(), "nc_x": nc_x,
+                "nc_y": nc_y, "weight": self._weight(batch)}
+
+    def complete_unc(self, batch) -> dict:
+        """An ``IndexBatchLoader`` batch over the unchanged slices -> NHWC f32
+        ``x``, ``y``, int64 ``item`` and f32 ``weight``."""
+        item = self._ids(batch["item"])
+        x, y = self._xy(self._nx, self._ny, item)
+        return {"x": x, "y": y, "item": item, "weight": self._weight(batch)}
+
+    def complete_c(self, batch) -> dict:
+        """The same over the changed slices (the final inference)."""
+        item = self._ids(batch["item"])
+        x, y = self._xy(self._cx, self._cy, item)
+        return {"x": x, "y": y, "item": item, "weight": self._weight(batch)}

@@ -4,7 +4,10 @@ The GDAL role of the reference (data_utils.py:190-198): ``open_raster``
 dispatches on content and extension, ``create_raster`` makes a writable
 GeoTIFF with the geo metadata copied from a source raster. Trimmed copy of
 the JAX package's ``data/raster.py``: the serving slice reads TIFF/ENVI
-scenes and writes TIFF rasters only.
+scenes and writes TIFF rasters only. ``read_image`` / ``write_image`` are the
+WHU slice I/O that the JAX package does through PIL (datasets.py:429-444,
+demo_wsss.py:337-344): ``.tif`` slices go through the TIFF codec here, any
+other extension through PIL, imported only then.
 """
 
 from __future__ import annotations
@@ -51,3 +54,39 @@ def create_raster(path: str, xsize: int, ysize: int, nband: int = 1,
         projection = projection if projection is not None else getattr(like, "projection", "")
     return tiff_mod.TiffWriter(path, xsize, ysize, nband, dtype, geotransform,
                                projection or "")
+
+
+_TIFF_EXTENSIONS = (".tif", ".tiff")
+
+
+def _pil(path: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"reading or writing {path} needs PIL (Pillow), which is not "
+                          "installed; only .tif slices are read without it") from e
+    return Image
+
+
+def read_image(path: str) -> np.ndarray:
+    """A slice image as an (H, W, bands) array of its stored type."""
+    if os.path.splitext(path)[1].lower() in _TIFF_EXTENSIONS:
+        r = open_raster(path)
+        try:
+            return r.read_block()
+        finally:
+            r.close()
+    a = np.array(_pil(path).open(path))
+    return a[..., None] if a.ndim == 2 else a
+
+
+def write_image(path: str, arr: np.ndarray) -> None:
+    """Write an (H, W) or (H, W, bands) uint8 image: a plain TIFF for a
+    ``.tif`` path, else PIL's format for the extension."""
+    arr = np.asarray(arr, np.uint8)
+    if os.path.splitext(path)[1].lower() in _TIFF_EXTENSIONS:
+        a3 = arr[..., None] if arr.ndim == 2 else arr
+        with tiff_mod.TiffWriter(path, a3.shape[1], a3.shape[0], a3.shape[2], np.uint8) as w:
+            w.write_block(a3)
+        return
+    _pil(path).fromarray(arr).save(path)

@@ -1,10 +1,17 @@
-"""Synthetic scene pair for tests and smoke runs.
+"""Synthetic datasets for tests and smoke runs.
 
-Copy of ``make_usss_scene`` from the JAX package's ``data/synthetic.py``:
-one bi-temporal GeoTIFF pair plus a {1,2}-coded reference raster (the
-Demo_USSS input contract, Demo_USSS.py:47-50,64). Image Y is a smooth
-band-mixed function of X outside the change rectangles and carries a strong
-offset inside them. The same seed gives the same files as the JAX package.
+Copies of the JAX package's ``data/synthetic.py`` generators, in the exact
+on-disk layouts the drivers read:
+
+  * ``make_usss_scene``: one bi-temporal GeoTIFF pair plus a {1,2}-coded
+    reference raster (the Demo_USSS input contract, Demo_USSS.py:47-50,64);
+  * ``make_whu_dataset``: ``before/``, ``after/``, ``Label/`` slice dirs and
+    ``label.txt`` (the BuildingProcess.py output contract,
+    BuildingProcess.py:150-167), uint8 slices written as plain TIFFs.
+
+Image Y is a smooth band-mixed function of X outside the change rectangles
+and carries a strong offset inside them. The same seed gives the same
+pixels as the JAX package, which writes its WHU slices through PIL.
 """
 
 from __future__ import annotations
@@ -66,3 +73,29 @@ def make_usss_scene(out_dir: str, xsize: int = 96, ysize: int = 96, nband: int =
         w.write_block((mask + 1).astype(np.uint8))
     paths["mask"] = mask
     return paths
+
+
+def make_whu_dataset(out_dir: str, n_changed: int = 4, n_unchanged: int = 6,
+                     size: int = 48, seed: int = 0) -> dict:
+    """Write ``n_changed`` changed and ``n_unchanged`` unchanged RGB uint8
+    ``size`` x ``size`` slice pairs, their 0/255 labels and label.txt
+    (``{name},0,0,{1|0}``) into ``out_dir``; returns the paths."""
+    dirs = {k: os.path.join(out_dir, k) for k in ("before", "after", "Label")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n_changed + n_unchanged):
+        changed = i < n_changed
+        rects = [(size // 4, size // 4, size // 3, size // 3)] if changed else []
+        x, y, mask = _scene_pair(rng, size, size, 3, rects)
+        name = f"{i}_0.tif"
+        for key, img in (("before", x), ("after", y)):
+            with TiffWriter(os.path.join(dirs[key], name), size, size, 3, np.uint8) as w:
+                w.write_block(np.clip(img, 0, 255).astype(np.uint8))
+        with TiffWriter(os.path.join(dirs["Label"], name), size, size, 1, np.uint8) as w:
+            w.write_block((mask * 255).astype(np.uint8))
+        lines.append(f"{name},0,0,{1 if changed else 0}")
+    with open(os.path.join(out_dir, "label.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"root": out_dir, **dirs, "label_txt": os.path.join(out_dir, "label.txt")}

@@ -1,15 +1,19 @@
-"""Carry the JAX package's Segmentor and Generator weights into the port.
+"""Carry the JAX package's Segmentor, Generator and Discriminator weights
+into the port.
 
 The port's models use the reference ``Module.py`` key names
-(``inc.double_conv.0.weight``, ``block2.conv1.weight``, ...), so reference
-``SModel.pkl`` / ``GModel.pkl`` state_dicts load strictly with
+(``inc.double_conv.0.weight``, ``block2.conv1.weight``, ``net.3.weight``,
+...), so reference ``SModel.pkl`` / ``GModel.pkl`` / ``DModel.pkl``
+state_dicts load strictly with
 ``load_state_dict``. ``units`` is a copy of the JAX package's unit map
 (``io/torch_interop.py::units``, :51-78): (unit type, torch prefix, flax
 path) in reference order. ``DoubleConv`` Sequential indices are {0 conv,
 1 bn, 3 conv, 4 bn} (Module.py:25-32, 43-46, 59-64, 85, 101-111); the
 Generator is block1 Sequential(conv9x9, PReLU), block2-6 ResidualBlock
 (conv1/bn1/prelu/conv2/bn2), block7 Sequential(conv, bn), block8 conv9x9
-(Module.py:145-158, 174-181).
+(Module.py:145-158, 174-181); the Discriminator is the ``net`` Sequential
+with convs at {0, 2, 5, 8} and BNs at {3, 6, 9}, and ``classifier`` convs at
+{1, 3} (Module.py:195-217).
 
 Layouts: flax kernel (kh, kw, I, O) -> torch weight (O, I, kh, kw); flax BN
 scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var;
@@ -57,9 +61,16 @@ def units(kind: str = "segmentor") -> List[Tuple[str, str, str]]:
               ("bn", "block7.1", "BatchNorm_0/BatchNorm_0"),
               ("conv", "block8", "TorchConv_2/Conv_0")]
         return u
-    raise NotImplementedError(
-        f"only the segmentor and the generator are ported so far, not {kind!r} "
-        "(ROADMAP.md)")
+    if kind == "discriminator":
+        u = [("conv", f"net.{ti}", f"TorchConv_{i}/Conv_0")
+             for i, ti in enumerate((0, 2, 5, 8))]
+        u += [("bn", f"net.{ti}", f"BatchNorm_{i}/BatchNorm_0")
+              for i, ti in enumerate((3, 6, 9))]
+        u += [("conv", "classifier.1", "TorchConv_4/Conv_0"),
+              ("conv", "classifier.3", "TorchConv_5/Conv_0")]
+        return u
+    raise ValueError(f"unknown model kind {kind!r}; expected segmentor, generator "
+                     "or discriminator")
 
 
 def _get(tree: Dict, path: str):
@@ -70,8 +81,8 @@ def _get(tree: Dict, path: str):
 
 def from_jax_variables(variables: Dict, kind: str = "segmentor") -> Dict[str, torch.Tensor]:
     """``{'params': ..., 'batch_stats': ...}`` nested dicts of arrays (a JAX
-    Segmentor's or Generator's variables, converted to numpy) -> the port's
-    state_dict."""
+    Segmentor's, Generator's or Discriminator's variables, converted to
+    numpy) -> the port's state_dict."""
     params, stats = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
     for typ, tkey, fpath in units(kind):

@@ -16,17 +16,18 @@ built per forward, with autograd, from the f32 parameters. Routing: a 3x3,
 stride-1, pad-1 conv whose shapes pass the JAX gate (C_in <= 64,
 C_out <= 128, H, W >= 8) runs on the ``ops.conv3x3`` kernel (its gradient
 through ``ops.conv3x3.conv3x3_backward``); every other conv calls
-``F.conv2d``. Max pools are ``ops.pool_bwd.max_pool_2x2``, whose backward is
-the ``pool_bwd`` kernel.
+``F.conv2d``. Max pools are ``ops.pool_bwd.max_pool_2x2``: its forward is
+the ``phase_pool`` kernel, its backward the ``pool_bwd`` kernel.
 
 BatchNorm follows the JAX package's default (layers.py:291-358), not
 ``F.batch_norm``: momentum 0.1, eps 1e-5; train mode normalises with the
 batch mean and the biased variance ``E[x^2] - E[x]^2`` (clamped at 0),
 computed in f32 whatever the compute dtype, and the running variance stores
-that biased value. The bias of the conv before a BN is folded
-(``bn_fold_enabled``, layers.py:32-54): in train mode it is never added, so
-it gets no gradient (``grad is None``) and only shifts the running-mean
-update; in eval mode it enters the BN shift.
+that biased value. Every train-mode BN is ``ops.fused_bn.bn_train``, whose
+statistics forward and backward are the ``channel_sums`` kernels. The bias
+of the conv before a BN is folded (``bn_fold_enabled``, layers.py:32-54): in
+train mode it is never added, so it gets no gradient (``grad is None``) and
+only shifts the running-mean update; in eval mode it enters the BN shift.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3, conv3x3_backward, gate, pack_weight
+from ..ops.fused_bn import bn_train
 from ..ops.pool_bwd import max_pool_2x2
 
 BN_MOMENTUM = 0.1
@@ -124,16 +126,12 @@ def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor, fold_bias: torch.Tensor) -> 
     with the JAX package's semantics (layers.py:337-358)."""
     dt = y.dtype
     if bn.training:
-        yf = y.float()
-        mean = yf.mean(dim=(0, 2, 3))
-        mean2 = yf.square().mean(dim=(0, 2, 3))
-        var = torch.clamp(mean2 - mean.square(), min=0.0)
+        out, mean, var = bn_train(y, bn.weight, bn.bias, BN_EPS)
         with torch.no_grad():
             bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean + fold_bias, alpha=BN_MOMENTUM)
             bn.running_var.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
             bn.num_batches_tracked.add_(1)
-        mul = (bn.weight * torch.rsqrt(var + BN_EPS)).to(dt).view(1, -1, 1, 1)
-        return (y - mean.to(dt).view(1, -1, 1, 1)) * mul + bn.bias.to(dt).view(1, -1, 1, 1)
+        return out
 
     def affine():
         mul = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
@@ -158,6 +156,11 @@ def prelu(act: nn.PReLU, x: torch.Tensor) -> torch.Tensor:
     """torch-default PReLU with one slope (JAX layers.py:387-394)."""
     alpha = act.weight.to(x.dtype)
     return torch.where(x >= 0, x, alpha * x)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``flax.linen.leaky_relu``: x where x >= 0, else slope * x."""
+    return torch.where(x >= 0, x, slope * x)
 
 
 class DoubleConv(nn.Module):

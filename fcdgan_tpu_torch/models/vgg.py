@@ -14,7 +14,8 @@ per-band perception loss) runs conv1_1 with its kernel summed over the three
 input channels in f32 (vgg.py:303-313): the convolution of the band
 replicated to RGB, without the replication. Convolutions are ``F.conv2d`` in
 channels_last (the JAX VGG calls ``lax.conv`` itself); the pools are
-``ops.pool_bwd.max_pool_2x2``, whose backward is the ``pool_bwd`` kernel.
+``ops.pool_bwd.max_pool_2x2``: the ``phase_pool`` kernel forward, the
+``pool_bwd`` kernel backward.
 The weights are tensors without ``requires_grad``, so a backward through
 the features computes the input gradient only.
 """

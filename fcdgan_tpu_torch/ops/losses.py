@@ -1,8 +1,8 @@
-"""The USSS loss stack over NHWC batches (parity: reference Loss.py:17-95).
+"""The USSS and WSSS loss stacks over NHWC batches (parity: reference Loss.py:17-124).
 
 Counterparts of the JAX package's ``ops/losses.py`` ``hard_mask``,
-``perception_loss`` and ``cnet_loss``; ``cgenerator_loss`` and
-``region_loss`` (WSSS, RSSS) come with those slices. Every function takes an
+``perception_loss``, ``cnet_loss`` (USSS) and ``cgenerator_loss`` (WSSS);
+``region_loss`` (RSSS) comes with that slice. Every function takes an
 optional ``sample_weight`` (B,): weighted terms divide by its sum, as the
 reference divides by the batch size. ``cmap`` is the (B, H, W, 1) soft
 change density; images are masked by ``1 - cmap`` broadcast over bands, and
@@ -72,6 +72,30 @@ def perception_loss(target: torch.Tensor, generated: torch.Tensor, cmask: torch.
     return loss
 
 
+def _masked_recon_terms(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
+                        kind: str):
+    """Per-sample reconstruction on the masked images, rescaled by
+    ``num_pixel / num_wnc`` (losses.py:153-174): (per-sample loss, num_wnc,
+    masked target, masked generated); ``kind`` is ``l1`` or ``mse``."""
+    num_pixel = target.shape[1] * target.shape[2]
+    num_wnc = (1.0 - cmap).sum(dim=(1, 2, 3))
+    tm = target * (1.0 - cmap)
+    gm = generated * (1.0 - cmap)
+    diff = tm - gm
+    per = (diff.abs() if kind == "l1" else diff.square()).mean(dim=(1, 2, 3))
+    per = per * num_pixel / torch.where(num_wnc > 0, num_wnc, torch.ones_like(num_wnc))
+    return per, num_wnc, tm, gm
+
+
+def _ms_ssim_loss(tm, gm, w, wn, msssim_weights, ssim_grad):
+    """1 - the weighted batch mean of MS-SSIM(tm, gm); without a graph when
+    ``ssim_grad`` is off (losses.py:215-227)."""
+    with torch.set_grad_enabled(ssim_grad and torch.is_grad_enabled()):
+        ssim_per = ssim_mod.ms_ssim(tm, gm, data_range=1.0, size_average=False,
+                                    weights=msssim_weights)
+        return 1.0 - (ssim_per * w).sum() / wn
+
+
 def cnet_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
               vgg: VGG16Weights, feature_layers: Sequence[int] = (29,),
               perception_per_band: bool = True, generator_mask_switch: bool = False,
@@ -87,12 +111,7 @@ def cnet_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
     is skipped and reported as 0 (losses.py:215-227)."""
     w = _weights(target, sample_weight)
     wn = torch.clamp(w.sum(), min=1.0)
-    num_pixel = target.shape[1] * target.shape[2]
-    num_wnc = (1.0 - cmap).sum(dim=(1, 2, 3))
-    tm = target * (1.0 - cmap)
-    gm = generated * (1.0 - cmap)
-    per = (tm - gm).abs().mean(dim=(1, 2, 3))
-    per = per * num_pixel / torch.where(num_wnc > 0, num_wnc, torch.ones_like(num_wnc))
+    per, _, tm, gm = _masked_recon_terms(target, generated, cmap, "l1")
     generator_loss = (per * w).sum() / wn
     l1_loss = (cmap.abs().mean(dim=(1, 2, 3)) * w).sum() / wn
     pmask = hard_mask(cmap) if generator_mask_switch else cmap
@@ -101,8 +120,31 @@ def cnet_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
                              dtype=perception_dtype, target_grad=perception_target_grad)
     if not compute_ssim:
         return generator_loss, l1_loss, p_loss, torch.zeros_like(l1_loss)
-    with torch.set_grad_enabled(ssim_grad and torch.is_grad_enabled()):
-        ssim_per = ssim_mod.ms_ssim(tm, gm, data_range=1.0, size_average=False,
-                                    weights=msssim_weights)
-        ssim_loss = 1.0 - (ssim_per * w).sum() / wn
-    return generator_loss, l1_loss, p_loss, ssim_loss
+    return (generator_loss, l1_loss, p_loss,
+            _ms_ssim_loss(tm, gm, w, wn, msssim_weights, ssim_grad))
+
+
+def cgenerator_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
+                    vgg: VGG16Weights, feature_layers: Sequence[int] = (29,),
+                    perception_per_band: bool = False,
+                    msssim_weights: Optional[Sequence[float]] = None,
+                    sample_weight: Optional[torch.Tensor] = None, ssim_grad: bool = True,
+                    perception_dtype: Optional[torch.dtype] = None,
+                    perception_target_grad: bool = True, compute_ssim: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """WSSS loss tuple (generator, ssim, perception) (parity: Loss.py:100-124).
+
+    ``cnet_loss`` with an MSE reconstruction; a sample whose mask covers
+    everything (num_wnc == 0) is skipped while the denominator stays the
+    weighted batch (Loss.py:116-119, losses.py:231-273)."""
+    w = _weights(target, sample_weight)
+    wn = torch.clamp(w.sum(), min=1.0)
+    per, num_wnc, tm, gm = _masked_recon_terms(target, generated, cmap, "mse")
+    keep = (num_wnc > 0).to(per.dtype)
+    generator_loss = (per * keep * w).sum() / wn
+    ssim_loss = (_ms_ssim_loss(tm, gm, w, wn, msssim_weights, ssim_grad) if compute_ssim
+                 else torch.zeros_like(generator_loss))
+    p_loss = perception_loss(target, generated, cmap, vgg, feature_layers,
+                             per_band=perception_per_band, sample_weight=sample_weight,
+                             dtype=perception_dtype, target_grad=perception_target_grad)
+    return generator_loss, ssim_loss, p_loss

@@ -14,6 +14,10 @@ Layouts stay the JAX package's at this boundary: ``x`` and ``dx`` are NHWC
 Routing is the row-major first maximum of each window (W first-wins, then H
 first-wins); the trailing row/column of an odd extent gets exactly 0.
 
+``max_pool_2x2`` is the port's 2x2 max pool: its forward is the
+``ops.phase_pool`` kernel, its backward this one; a ``dy`` that is not
+channels_last is copied first (``ops.layout.nhwc``).
+
 ``pool_bwd`` launches the kernel for a CUDA tensor and runs the plain version
 for a CPU tensor; it raises on anything else. ``pool_bwd.launches`` counts
 kernel launches.
@@ -26,6 +30,9 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from .layout import nhwc
+from .phase_pool import phase_pool
 
 SOURCE = "pool_bwd"
 
@@ -104,25 +111,23 @@ pool_bwd.launches = 0
 
 
 class _MaxPool2x2(torch.autograd.Function):
-    """Forward ``F.max_pool2d(x, 2)`` (floor extents, like XLA's VALID
-    reduce_window); backward the kernel, from the saved ``x`` alone."""
+    """Forward the ``phase_pool`` kernel (floor extents, like XLA's VALID
+    reduce_window, first-wins routing); backward the ``pool_bwd`` kernel,
+    from the saved ``x`` alone."""
 
     @staticmethod
     def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return F.max_pool2d(x, 2)
+        x_nhwc = nhwc(x)
+        ctx.save_for_backward(x_nhwc)
+        return phase_pool(x_nhwc).permute(0, 3, 1, 2)
 
     @staticmethod
     def backward(ctx, dy):
-        (x,) = ctx.saved_tensors
-        x_nhwc = x.permute(0, 2, 3, 1)
-        if not x_nhwc.is_contiguous():
-            x_nhwc = x_nhwc.contiguous()
-        dx = pool_bwd(x_nhwc, dy.permute(0, 2, 3, 1).contiguous())
-        return dx.permute(0, 3, 1, 2)
+        (x_nhwc,) = ctx.saved_tensors
+        return pool_bwd(x_nhwc, nhwc(dy)).permute(0, 3, 1, 2)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2/2 max pool of an NCHW (channels_last) tensor; its gradient runs
-    through ``pool_bwd``."""
+    """2x2/2 max pool of an NCHW (channels_last) tensor: the ``phase_pool``
+    kernel forward, the ``pool_bwd`` kernel backward."""
     return _MaxPool2x2.apply(x)

@@ -1,20 +1,25 @@
-"""Where the time of one USSS joint step goes on the GPU: a torch.profiler window.
+"""Where the time of one training step goes on the GPU: a torch.profiler window.
 
-Builds the training configuration of ``chip_smoke.py``'s train phase (a
-synthetic 1024x1024 3-band uint16 scene, patch 220, padding 10, batch 10,
-bf16, seeded full-width Generator and Segmentor, the random VGG16), runs
-four warm joint steps (the kernels build, cuDNN picks its algorithms), times
-``--steps`` more with a synchronize after each, then runs one joint step
-under ``torch.profiler``. Prints one JSON line: the step's wall time with
-and without the profiler, the device's busy time and idle share over the
-profiled step, and device time by coarse group (the three kernels of the
+``--mode usss`` (the default) builds the training configuration of
+``chip_smoke.py``'s train phase (a synthetic 1024x1024 3-band uint16 scene,
+patch 220, padding 10, batch 10, bf16, seeded full-width Generator and
+Segmentor, the random VGG16, per-band perception at relu5_3) and profiles a
+joint step. ``--mode wsss`` builds that of its wsss phase (synthetic 200x200
+RGB uint8 WHU slices, batch 15 pairs, bf16, seeded Generator, Segmentor and
+Discriminator, RGB perception at relu5_3) and profiles an adversarial step.
+Either runs four warm steps (the kernels build, cuDNN picks its
+algorithms), times ``--steps`` more with a synchronize after each, then runs
+one step under ``torch.profiler``. Prints one JSON line: the step's wall
+time with and without the profiler, the device's busy time and idle share
+over the profiled step, device time by coarse group (the kernels of the
 port, the other convolutions forward and backward, BN/elementwise, pooling
 and upsampling, the optimizer, gather/copy) and by kernel name (top
-``--top``).
+``--top``), and the layout copies (``ops.layout.copies``) the step made
+before its kernels.
 
 Run on a machine with a CUDA card, from the repository root:
 
-    python -m fcdgan_tpu_torch.tools.profile_train [--steps 8]
+    python -m fcdgan_tpu_torch.tools.profile_train [--mode wsss] [--steps 8]
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
 import statistics
 import tempfile
 import time
@@ -31,9 +37,14 @@ import torch
 
 from .profile_serve import device_summary
 
+WSSS_SIZE = 200  # px, the side of a WHU Building CD slice
+
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("conv3x3 kernel", ("conv3x3_nhwc_kernel",)),
     ("pool_bwd kernel", ("pool_bwd_nhwc_kernel",)),
+    ("phase_pool kernel", ("phase_pool_nhwc_kernel",)),
+    ("channel_sums kernels (BN statistics)", ("channel_partials_kernel",
+                                              "channel_final_kernel")),
     ("fused_ssim kernel", ("ssim_tile_kernel", "ssim_plane_mean_kernel")),
     ("cudnn/cutlass conv fwd+bwd", ("conv", "xmma", "implicit", "cutlass", "sm90_",
                                     "gemm", "wgrad", "dgrad", "nchwtonhwc",
@@ -46,9 +57,7 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
 )
 
 
-def main(argv=None):
-    from torch.profiler import ProfilerActivity, profile
-
+def _usss_step(device, batch_size, scene):
     from ..data.datasets import ScenePairDataset
     from ..data.device_cache import DeviceSceneCache
     from ..data.normalize import Normalize
@@ -59,18 +68,9 @@ def main(argv=None):
     from ..models.vgg import VGG16Weights, load_vgg16_params
     from ..train.optim import adam
     from ..train.steps import PerceptionConfig, USSSSteps
-    from ..utils.device import resolve_device
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", type=int, default=1024)
-    ap.add_argument("--batch-size", type=int, default=10)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args(argv)
-    device = resolve_device("cuda")
 
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
-        make_usss_scene(work, args.scene, args.scene, 3, seed=1, dtype=np.uint16)
+        make_usss_scene(work, scene, scene, 3, seed=1, dtype=np.uint16)
         stats_ds = ScenePairDataset(os.path.join(work, "T1.tif"), os.path.join(work, "T2.tif"),
                                     patch_size=(220, 220), overlap_padding=(0, 0))
         scaler = Normalize(*dataset_meanstd(os.path.join(work, "s1.txt"),
@@ -86,11 +86,79 @@ def main(argv=None):
                       VGG16Weights(load_vgg16_params(), device),
                       PerceptionConfig((29,), True, dtype=torch.bfloat16),
                       0.4, 0.65, 0.0, ds.grid.interior_sizes(), (10, 10))
-    batch = {"item": np.arange(args.batch_size), "weight": np.ones(args.batch_size, np.float32)}
+    batch = {"item": np.arange(batch_size), "weight": np.ones(batch_size, np.float32)}
 
     def step():
         db = cache.complete(batch)
-        m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+        return steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+
+    return step, batch_size
+
+
+def _wsss_step(device, batch_size):
+    from ..data.datasets import WHUPairDataset
+    from ..data.device_cache import DeviceWHUCache
+    from ..data.normalize import Normalize
+    from ..data.stats import dataset_meanstd
+    from ..data.synthetic import make_whu_dataset
+    from ..models.discriminator import Discriminator
+    from ..models.generator import Generator
+    from ..models.segmentor import Segmentor
+    from ..models.vgg import VGG16Weights, load_vgg16_params
+    from ..train import schedules
+    from ..train.optim import adam, rmsprop
+    from ..train.steps import PerceptionConfig, WSSSSteps
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
+        make_whu_dataset(work, batch_size, batch_size, WSSS_SIZE, seed=2)
+        dirs = [os.path.join(work, d) for d in ("before", "after", "Label")] + [work]
+        scaler = Normalize(*dataset_meanstd(os.path.join(work, "s1.txt"),
+                                            os.path.join(work, "s2.txt"),
+                                            WHUPairDataset(*dirs).c_ds))
+        pair_ds = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(0))
+        cache = DeviceWHUCache(pair_ds, scaler, device)
+    torch.manual_seed(0)
+    dt = torch.bfloat16
+    net_g, net_s, net_d = (cls(3, compute_dtype=dt).to(device)
+                           for cls in (Generator, Segmentor, Discriminator))
+    steps = WSSSSteps(net_g, net_s, net_d, adam(net_g.parameters()),
+                      rmsprop(net_s.parameters()), rmsprop(net_d.parameters()),
+                      VGG16Weights(load_vgg16_params(), device),
+                      PerceptionConfig((29,), False, dtype=dt), 0.5, 0.0, 0.2, 1.6, 1.0, 1.5)
+    items = np.arange(batch_size)
+    batch = {"c_item": items, "nc_item": items, "weight": np.ones(batch_size, np.float32)}
+    lr_s, lr_d = schedules.S_ADV_WSSS(2), schedules.D_ADV_WSSS(2)
+
+    def step():
+        db = cache.complete_pair(batch)
+        return steps.adversarial(db["c_x"], db["c_y"], db["c_ref"], db["nc_x"], db["nc_y"],
+                                 db["weight"], lr_s, lr_d)
+
+    return step, batch_size
+
+
+def main(argv=None):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import layout
+    from ..utils.device import resolve_device
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("usss", "wsss"), default="usss")
+    ap.add_argument("--scene", type=int, default=1024, help="usss: scene side in px")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="tiles (usss, default 10) or pairs (wsss, default 15) per step")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    device = resolve_device("cuda")
+    if args.mode == "usss":
+        run, bs = _usss_step(device, args.batch_size or 10, args.scene)
+    else:
+        run, bs = _wsss_step(device, args.batch_size or 15)
+
+    def step():
+        m = run()
         torch.cuda.synchronize(device)
         return m
 
@@ -101,16 +169,19 @@ def main(argv=None):
         t0 = time.perf_counter()
         step()
         times.append(time.perf_counter() - t0)
+    copies = layout.copies
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         wall = time.perf_counter() - t0
     print(json.dumps({
-        "device": torch.cuda.get_device_name(device), "scene": args.scene,
-        "batch_size": args.batch_size, "tiles_per_step": args.batch_size,
+        "device": torch.cuda.get_device_name(device), "mode": args.mode,
+        "batch_size": bs, "scene": args.scene if args.mode == "usss" else None,
+        "slice": WSSS_SIZE if args.mode == "wsss" else None,
         "step_ms_unprofiled": [t * 1e3 for t in times],
         "step_ms_unprofiled_median": statistics.median(times) * 1e3,
         "step_ms_profiled": wall * 1e3,
+        "layout_copies_per_step": layout.copies - copies,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         **device_summary(prof, wall, groups=GROUPS, top=args.top),
     }))

@@ -36,7 +36,7 @@ class WarmupSustainDecay:
         return (self.lr_max - self.lr_min) * self.exp_decay ** (epoch - w - s) + self.lr_min
 
 
-#: USSS/WSSS/RSSS generator pretrain (Demo_USSS.py:133)
+#: USSS/WSSS/RSSS generator pretrain (Demo_USSS.py:133, Demo_WSSS.py:148)
 G_PRETRAIN = WarmupSustainDecay(lr_start=1e-5, lr_max=3e-4, warmup_epochs=10, sustain_epochs=10)
 
 #: USSS segmentor init phase (Demo_USSS.py:201)
@@ -44,3 +44,9 @@ S_INIT_USSS = WarmupSustainDecay(lr_start=1e-5, lr_max=3e-4, warmup_epochs=10, s
 
 #: USSS joint phase, both optimizers (Demo_USSS.py:298-299)
 JOINT_USSS = WarmupSustainDecay(lr_start=1e-5, lr_max=1e-4, warmup_epochs=20)
+
+#: WSSS adversarial segmentor (Demo_WSSS.py:226)
+S_ADV_WSSS = WarmupSustainDecay(lr_start=1e-4, lr_max=1e-3, warmup_epochs=5)
+
+#: WSSS adversarial discriminator (Demo_WSSS.py:227)
+D_ADV_WSSS = WarmupSustainDecay(lr_start=1e-6, lr_max=1e-5, lr_min=1e-8, warmup_epochs=5)

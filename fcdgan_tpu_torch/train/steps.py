@@ -1,8 +1,11 @@
-"""Train and inference steps of the unsupervised mode (JAX ``train/steps.py``).
+"""Train and inference steps of the unsupervised and weakly supervised modes
+(JAX ``train/steps.py``).
 
 ``USSSSteps`` holds the Generator, the Segmentor, their optimizers and the
 loss configuration, and runs one batch of each reference phase
-(Demo_USSS.py:124-400) plus inference (:404-473). Batches are NHWC float32
+(Demo_USSS.py:124-400) plus inference (:404-473). ``WSSSSteps`` does the
+same for the G pretrain (Demo_WSSS.py:140-204), the adversarial S/D step
+(:235-343) and the final train-mode-BN inference (:387-445). Batches are NHWC float32
 tensors on the models' device, as in the JAX package; the models see their
 NCHW channels_last views. A step returns its metrics as device tensors (the
 confusion matrix included), so the epoch loop reads them once per epoch.
@@ -169,3 +172,137 @@ class USSSSteps:
         """Eval-mode change density of NCHW tiles, (B, 1, H, W) float32."""
         self.S.eval()
         return self.S(x, y)
+
+
+def _wmean(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted batch mean of per-sample values (steps.py:84-86)."""
+    return (v * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+class WSSSSteps:
+    """Steps of the weakly supervised mode (JAX ``WSSSSteps``, :265-458).
+
+    Gradient flow, as in the JAX package:
+      * G pretrain on unchanged pairs: cmap is zero and the target is data,
+        so the perception target branch runs forward only.
+      * Adversarial: ONE pair of train-mode S forwards (changed pair, then
+        unchanged pair; S's BN statistics move on both, in order) keeps its
+        graph. The D update sees the detached masks, the unchanged pair
+        masked by the CHANGED pair's mask (:367-373), with loss
+        ``1 + wmean(D(nc)) - wmean(D(c))``, then RMSprop. The frozen G runs in
+        eval mode under ``no_grad``. The S loss
+        ``dw*s_d + l1w*l1 + gw*g + ncw*nc`` re-evaluates the UPDATED D on
+        the changed pair masked by the live map; its gradients go into S's
+        parameters only (``torch.autograd.grad``), so it never steps D, and
+        D's BN statistics move on all three of its forwards.
+    Each step leaves each stepped net's gradients in ``.grad``."""
+
+    def __init__(self, generator, segmentor, discriminator, opt_g, opt_s, opt_d,
+                 vgg: VGG16Weights, perception: PerceptionConfig, perception_weight: float,
+                 ssim_weight: float, g_weight: float, l1_weight: float, d_weight: float,
+                 nc_weight: float, prob_thresh: float = 0.6,
+                 discriminator_continuous: bool = True,
+                 msssim_weights: Optional[Sequence[float]] = None, ssim_metric: bool = True):
+        if not ssim_metric and ssim_weight != 0:
+            raise ValueError("ssim_metric=False requires ssim_weight == 0")
+        self.G, self.S, self.D = generator, segmentor, discriminator
+        self.opt_g, self.opt_s, self.opt_d = opt_g, opt_s, opt_d
+        self.vgg = vgg
+        self.pc = perception
+        self.pw, self.sw = perception_weight, ssim_weight
+        self.gw, self.l1w, self.dw, self.ncw = g_weight, l1_weight, d_weight, nc_weight
+        self.prob_thresh = prob_thresh
+        self.continuous = discriminator_continuous
+        self.msw = tuple(msssim_weights) if msssim_weights is not None else None
+        self.ssim_metric = ssim_metric
+
+    def _cgen(self, y, y_fake, cmap, w, target_grad=True):
+        return L.cgenerator_loss(
+            y, y_fake, cmap, self.vgg, self.pc.feature_layers,
+            perception_per_band=self.pc.per_band, msssim_weights=self.msw,
+            sample_weight=w, ssim_grad=self.sw != 0, perception_dtype=self.pc.dtype,
+            perception_target_grad=target_grad, compute_ssim=self.ssim_metric)
+
+    def _d(self, x, y):
+        return self.D(_nchw(x), _nchw(y))
+
+    # -- G pretrain on unchanged pairs, cmap = 0 (Demo_WSSS.py:140-204) -----
+    def g_pretrain(self, x, y, w, lr) -> Dict[str, torch.Tensor]:
+        self.G.train()
+        cmap = torch.zeros(x.shape[:3] + (1,), dtype=x.dtype, device=x.device)
+        y_fake = _nhwc(self.G(_nchw(x)))
+        gen, ssim, perc = self._cgen(y, y_fake, cmap, w, target_grad=False)
+        loss = gen + self.pw * perc + self.sw * ssim
+        self.opt_g.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(self.opt_g, lr)
+        self.opt_g.step()
+        return {"g_loss": loss.detach(), "generator_loss": gen.detach(),
+                "perception_loss": perc.detach(), "ssim_loss": ssim.detach()}
+
+    # -- adversarial D-then-S step (Demo_WSSS.py:235-343) -------------------
+    def adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
+                    ) -> Dict[str, torch.Tensor]:
+        self.G.eval()
+        self.S.train()
+        self.D.train()
+        cmap = _nhwc(self.S(_nchw(c_x), _nchw(c_y)))
+        ncmap = _nhwc(self.S(_nchw(nc_x), _nchw(nc_y)))
+
+        # D update: the masks are data, the gradients go into D only
+        cmask = (cmap if self.continuous else L.hard_mask(cmap)).detach()
+        keep = 1 - cmask
+        c_out = self._d(c_x * keep, c_y * keep)  # D's BN statistics: c, then nc
+        nc_out = self._d(nc_x * keep, nc_y * keep)
+        d_loss = 1.0 + _wmean(nc_out, w) - _wmean(c_out, w)
+        self.opt_d.zero_grad(set_to_none=True)
+        d_loss.backward()
+        set_lr(self.opt_d, lr_d)
+        self.opt_d.step()
+
+        # the frozen G (eval mode, Demo_WSSS.py:206)
+        y_fake = None
+        if self.gw != 0:
+            with torch.no_grad():
+                y_fake = _nhwc(self.G(_nchw(c_x)))
+
+        # S loss against the updated D
+        keep = 1 - (cmap if self.continuous else L.hard_mask(cmap))
+        s_d_loss = _wmean(self._d(c_x * keep, c_y * keep), w)
+        nc_loss = _wmean(ncmap.square().mean(dim=(1, 2, 3)), w)
+        if y_fake is not None:
+            gen, ssim, perc = self._cgen(c_y, y_fake, cmap, w)
+        else:
+            gen = ssim = perc = torch.zeros((), dtype=c_x.dtype, device=c_x.device)
+        g_loss = gen + self.pw * perc + self.sw * ssim
+        l1_loss = _wmean(cmap.abs().mean(dim=(1, 2, 3)), w)
+        s_loss = (self.dw * s_d_loss + self.l1w * l1_loss + self.gw * g_loss
+                  + self.ncw * nc_loss)
+        params = [p for p in self.S.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(s_loss, params, allow_unused=True)
+        self.opt_s.zero_grad(set_to_none=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        set_lr(self.opt_s, lr_s)
+        self.opt_s.step()
+
+        # in-training eval on the changed pair, full patch (Demo_WSSS.py:337-343)
+        with torch.no_grad():
+            cmask_t = (cmap[..., 0] > self.prob_thresh).to(torch.float32)
+            valid = w.view(-1, 1, 1).expand_as(cmask_t)
+            cm = confusion_update(c_ref[..., 0], cmask_t, (0, 1), (0, 1), valid)
+        return {"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
+                "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
+                "nc_loss": nc_loss.detach(), "g_loss": g_loss.detach(),
+                "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
+                "perception_loss": perc.detach(), "confusion": cm}
+
+    # -- final inference, train-mode BN (Demo_WSSS.py:387-445) --------------
+    @torch.no_grad()
+    def infer_train_mode(self, x, y) -> torch.Tensor:
+        """The change density (B, H, W, 1) f32 of NHWC pairs with S in train
+        mode, as the reference ("train mode gets better performance",
+        Demo_WSSS.py:389-391): S's BN running statistics move on every call,
+        before SModel is saved."""
+        self.S.train()
+        return _nhwc(self.S(_nchw(x), _nchw(y)))

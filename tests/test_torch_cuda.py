@@ -67,6 +67,10 @@ def test_pool_bwd_kernel_is_bit_equal_to_plain(shape, dtype):
     torch.cuda.synchronize()
     assert pool_bwd.launches == before + 1
     assert torch.equal(got, pool_bwd_plain(xt, dyt))
+    if (c * xt.element_size()) % 16:  # the phase_pool forward takes whole 16-byte rows
+        with pytest.raises(ValueError, match="16-byte vectors"):
+            max_pool_2x2(xt.permute(0, 3, 1, 2))
+        return
     xa = xt.permute(0, 3, 1, 2).requires_grad_()
     torch.nn.functional.max_pool2d(xa, 2).backward(dyt.permute(0, 3, 1, 2))
     xb = xt.permute(0, 3, 1, 2).requires_grad_()
@@ -97,3 +101,144 @@ def test_fused_ssim_kernel_matches_plain(shape):
         assert (g - wnt).abs().max().item() <= 2e-5
     again = ssim_level(xt, yt, 1.0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 20, 24, 64), (3, 11, 9, 128), (1, 13, 13, 512),
+                                   (2, 5, 7, 1024), (1, 3, 3, 8)])
+def test_channel_sums_kernels_match_plain(shape, dtype):
+    """Both sum kernels against their plain versions at the tolerance of the
+    CPU tests (1e-5 of the sum of magnitudes), and bitwise repeatable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
+                                                   channel_sums_pair_plain,
+                                                   channel_sums_plain)
+
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(rng.normal(1.0, 2.0, size=shape).astype(np.float32)).cuda().to(dt)
+    b = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dt)
+    before = (channel_sums.launches, channel_sums_pair.launches)
+    got = (*channel_sums(a, square=True), channel_sums(a), *channel_sums_pair(a, b))
+    torch.cuda.synchronize()
+    assert (channel_sums.launches, channel_sums_pair.launches) == (before[0] + 2,
+                                                                   before[1] + 1)
+    af, bf = a.float().reshape(-1, shape[-1]), b.float().reshape(-1, shape[-1])
+    want = (*channel_sums_plain(a, square=True), channel_sums_plain(a),
+            *channel_sums_pair_plain(a, b))
+    scale = (af.abs().sum(0), af.square().sum(0), af.abs().sum(0), af.abs().sum(0),
+             (af * bf).abs().sum(0))
+    for g, w, s in zip(got, want, scale):
+        assert bool(((g - w).abs() <= 1e-5 * s + 1e-30).all())
+    again = (*channel_sums(a, square=True), channel_sums(a), *channel_sums_pair(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_on_cuda_launches_both_sum_kernels(dtype):
+    """A train-mode BN forward and backward on the card: one launch of each
+    sum kernel, results as the same BN on the CPU (the plain sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums, channel_sums_pair
+    from fcdgan_tpu_torch.ops.fused_bn import bn_train
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0.5, 1.5, size=(4, 64, 12, 10)).astype(np.float32)
+                         ).contiguous(memory_format=torch.channels_last)
+    dy = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, size=64).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).to(getattr(torch, dtype)).requires_grad_()
+        sd, bd = scale.to(dev).requires_grad_(), bias.to(dev).requires_grad_()
+        before = (channel_sums.launches, channel_sums_pair.launches)
+        y, mean, var = bn_train(xd, sd, bd, 1e-5)
+        y.backward(dy.to(dev).to(y.dtype).contiguous(memory_format=torch.channels_last))
+        launched = (channel_sums.launches - before[0], channel_sums_pair.launches - before[1])
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0))
+        out[dev] = [t.detach().float().cpu() for t in (y, mean, var, xd.grad, sd.grad,
+                                                       bd.grad)]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert (g - c).abs().max().item() <= tol * max(1.0, c.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64), (3, 11, 9, 128), (2, 27, 27, 512),
+                                   (4, 3, 6, 8), (2, 25, 25, 256), (1, 5, 7, 64)])
+def test_phase_pool_kernel_is_bit_equal_to_plain(shape, dtype):
+    """Bit-equal to its plain version and to F.max_pool2d, ReLU-style ties
+    included, odd extents floored; max_pool_2x2 launches it once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool, phase_pool_plain
+    from fcdgan_tpu_torch.ops.pool_bwd import max_pool_2x2
+
+    rng = np.random.default_rng(7)
+    x = np.maximum(rng.normal(size=shape), 0).astype(np.float32)
+    x[..., ::5] = np.round(x[..., ::5])
+    xt = torch.from_numpy(x).cuda().to(getattr(torch, dtype))
+    before = phase_pool.launches
+    got = phase_pool(xt)
+    torch.cuda.synchronize()
+    assert phase_pool.launches == before + 1
+    assert torch.equal(got, phase_pool_plain(xt))
+    lib = torch.nn.functional.max_pool2d(xt.permute(0, 3, 1, 2), 2)
+    assert torch.equal(got.permute(0, 3, 1, 2), lib)
+    assert torch.equal(max_pool_2x2(xt.permute(0, 3, 1, 2)), lib)
+    assert phase_pool.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 96, 96, 64), (8, 96, 96, 128)])
+def test_channel_sums_kernels_count_every_row(shape, dtype):
+    """Rows past four grid strides, so the unrolled main loop runs. Small
+    integers make every partial sum exact in f32 in any order, so the sums
+    must equal the float64 sums exactly: one row lost or read twice moves a
+    channel's sum by at least 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.channel_sums import (THREADS, channel_sums, channel_sums_pair,
+                                                   grid_blocks)
+
+    dt = getattr(torch, dtype)
+    rows, c = int(np.prod(shape[:-1])), shape[-1]
+    itemsize = torch.empty((), dtype=dt).element_size()
+    row_lanes = THREADS // min(c // (16 // itemsize), THREADS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert rows > 4 * grid_blocks(rows, c, itemsize, sms) * row_lanes
+    rng = np.random.default_rng(8)
+    a = rng.integers(1, 5, size=shape).astype(np.float64)
+    b = rng.integers(1, 5, size=shape).astype(np.float64)
+    at, bt = (torch.from_numpy(v.astype(np.float32)).cuda().to(dt) for v in (a, b))
+    got = (*channel_sums(at, square=True), *channel_sums_pair(at, bt))
+    a2, b2 = a.reshape(-1, c), b.reshape(-1, c)
+    want = (a2.sum(0), np.square(a2).sum(0), a2.sum(0), (a2 * b2).sum(0))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), torch.from_numpy(w.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_phase_pool_raises_on_layouts_it_does_not_take(dtype):
+    """A row that is not a whole number of 16-byte vectors, or an unaligned
+    base, raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool
+
+    dt = getattr(torch, dtype)
+    before = phase_pool.launches
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        phase_pool(torch.zeros((1, 5, 7, 3), dtype=dt, device="cuda"))
+    unaligned = torch.zeros(2 * 4 * 4 * 64 + 1, dtype=dt, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        phase_pool(unaligned.view(2, 4, 4, 64))
+    assert phase_pool.launches == before
