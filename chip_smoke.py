@@ -16,9 +16,16 @@ Phases, each printed on its own line; any failure exits non-zero:
            none), each from back-to-back calls queued behind a spin kernel;
            call_ms, one kernel call from an idle card with the wrapper's host
            work; the bound and what bounds it:
-             conv3x3    the three gated convs of one serving chunk (patch
-                        220, batch 10 stacked to 20), bf16 and f32; library
-                        F.conv2d
+             conv3x3    bf16 (the wgmma kernel): the three gated convs of
+                        one serving chunk (patch 220, batch 10 stacked to
+                        20; also S's convs in a USSS joint step), G's trunk
+                        in a USSS joint step, a WSSS adversarial step and a
+                        WSSS G-pretrain step, S's three in a WSSS step, each
+                        with its count per step and one wgmma launch; f32
+                        (the CUDA-core kernel of the parity paths) at inc
+                        conv2; library F.conv2d; the 3-band rows also time
+                        the layer with its input zero-padded to 8 channels,
+                        pad included, which TMA takes (channel_pad_tma_ms)
              pool_bwd   the 8 max-pool backwards of one training step (the
                         Segmentor's 4 at N=20, the per-band VGG's 4 at
                         N=60), bf16 and f32, bit-equal; library
@@ -38,15 +45,17 @@ Phases, each printed on its own line; any failure exits non-zero:
   serve    tools.infer.main on a 2048x2048 3-band uint16 scene with a seeded
            full-width Segmentor (bf16): output rasters, density in [0, 1],
            finite oa/f1, conv3x3 launched 3 times and phase_pool 4 times per
-           chunk (the other kernels not at all); px_per_s
+           chunk (the other kernels not at all), every conv3x3 launch on the
+           wgmma variant; px_per_s
   parity   one chunk of 2 tiles through the port in f32 on the card and on
            the CPU (plain versions): max abs density difference <= 1e-3
   train    demos.demo_usss.main on a 1024x1024 3-band uint16 scene (patch
            220, padding 10, batch 10: 36 tiles, 4 steps per epoch), bf16,
            1 G-pretrain + 1 S-init + 3 joint epochs (20 steps), then the
            fused stitched inference: every artifact, finite losses and
-           metrics, density in [0, 1], SModel loading strictly, and each
-           kernel's launches equal to the count derived from the models;
+           metrics, density in [0, 1], SModel loading strictly, each
+           kernel's launches equal to the count derived from the models and
+           every conv3x3 launch on the wgmma variant;
            seconds per phase, joint epochs/s over the warm epochs 2-3, tile
            Mpx/s, peak device memory
   train_parity  one joint step on 2 tiles in f32 from the same seeded
@@ -60,8 +69,9 @@ Phases, each printed on its own line; any failure exits non-zero:
            production settings: batch 15, unc batch 50, bf16, RGB perception
            at layer 1), 1 G-pretrain + 3 adversarial epochs, then the
            train-mode inference over the 150 changed slices: every artifact,
-           finite losses and metrics, strict loads, and each kernel's
-           launches equal to the count derived from the models; seconds per
+           finite losses and metrics, strict loads, each kernel's launches
+           equal to the count derived from the models and every conv3x3
+           launch on the wgmma variant; seconds per
            phase, adversarial epochs/s over the warm epochs 2-3, slice Mpx/s,
            peak device memory
   wsss_parity  one adversarial step on 2 pairs in f32 from the same seeded
@@ -70,7 +80,8 @@ Phases, each printed on its own line; any failure exits non-zero:
            1e-4), and the BN kernels against the plain sums on the step's own
            BN inputs (1e-5 of the sum of magnitudes)
 
-Then one JSON line of kernel records, and as the last line
+Then one JSON line of kernel records (conv3x3's sums one serving chunk;
+the JSON summary file adds its ms per training step), and as the last line
 {"ok": true, "device": {...}}. f32 comparisons run with TF32 off (cuDNN and
 cuBLAS), set once for the whole script. The scratch files go to
 chiprun_out/chip_smoke/ inside the checkout and are removed at the end.
@@ -99,6 +110,20 @@ SERVE_SHAPES = [  # (layer, N, H, W, C_in, C_out) of one serving chunk
     ("inc.conv1", 20, 220, 220, 3, 64),
     ("inc.conv2", 20, 220, 220, 64, 64),
     ("down1.conv1", 20, 110, 110, 64, 128),
+]
+# (layer, step, count per step, N, H, W, C_in, C_out) of the training paths'
+# conv3x3 launches besides the serving shapes (which are also S's convs in a
+# USSS joint step): G's 11 trunk convs per USSS joint step, WSSS adversarial
+# step (G eval forward on 15 slices) and WSSS G-pretrain step (unc batch 50),
+# and S's three per forward at N = 2 x 15 in a WSSS adversarial step (two S
+# forwards per step)
+TRAIN_CONV_SHAPES = [
+    ("G trunk", "usss_joint", 11, 10, 220, 220, 64, 64),
+    ("G trunk", "wsss_adversarial", 11, 15, 200, 200, 64, 64),
+    ("G trunk", "wsss_g_pretrain", 11, 50, 200, 200, 64, 64),
+    ("S inc.conv1", "wsss_adversarial", 2, 30, 200, 200, 3, 64),
+    ("S inc.conv2", "wsss_adversarial", 2, 30, 200, 200, 64, 64),
+    ("S down1.conv1", "wsss_adversarial", 2, 30, 100, 100, 64, 128),
 ]
 # (pool, N, H, W, C) of one S-init or joint step: the Segmentor's Down pools
 # on the stacked pair (2 x batch 10), then the per-band VGG's on the stacked
@@ -220,51 +245,86 @@ def roofline(nbytes, flops, dtype_name):
 
 
 def conv_rows(torch, F):
-    from fcdgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    """conv3x3 at every shape of the main paths: the serving chunk's three
+    (which are also S's convs in a USSS joint step) and the training shapes
+    in bf16, each row with its count per step; one f32 row for the CUDA-core
+    kernel of the parity paths."""
+    from fcdgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, variant
 
+    shapes = [(layer, "serve_chunk", 1, *shape, "bfloat16") for layer, *shape in SERVE_SHAPES]
+    shapes += [(*row, "bfloat16") for row in TRAIN_CONV_SHAPES]
+    shapes.append(("inc.conv2", "serve_chunk", 1, *SERVE_SHAPES[1][1:], "float32"))
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype_name in ("bfloat16", "float32"):
+    for layer, step, count, n, h, w, ci, co, dtype_name in shapes:
         dt = getattr(torch, dtype_name)
-        for layer, n, h, w, ci, co in SERVE_SHAPES:
-            x = torch.randn((n, h, w, ci), generator=gen, device="cuda").to(dt)
-            bound = 1.0 / math.sqrt(9 * ci)  # torch's default conv init range
-            k = ((torch.rand((3, 3, ci, co), generator=gen, device="cuda") * 2 - 1)
-                 * bound).to(dt)
-            got = conv3x3(x, k)
-            want = conv3x3_plain(x, k)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            # f32: summation order only; bf16: one output rounding (1 ulp of
-            # the largest value)
-            tol = 2e-4 if dt == torch.float32 else 2.0 ** -7 * want.float().abs().max().item()
-            x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
-            k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-            lib = F.conv2d(x_nchw, k_oihw, padding=1)
-            lib_err = (lib.permute(0, 2, 3, 1).float() - want.float()).abs().max().item()
-            item = dt.itemsize
-            nbytes = (x.numel() + k.numel() + got.numel()) * item
-            flops = 2 * n * h * w * 9 * ci * co
-            bound_ms, bound_by = roofline(nbytes, flops, dtype_name)
-            row = {
-                "name": "conv3x3", "layer": layer, "dtype": dtype_name,
-                "shape": [n, h, w, ci, co], "max_abs_err": err, "tol": tol,
-                "library_max_abs_err": lib_err,
-                "ms": cuda_ms(torch, lambda: conv3x3(x, k)),
-                "call_ms": call_ms(torch, lambda: conv3x3(x, k)),
-                "plain_ms": cuda_ms(torch, lambda: conv3x3_plain(x, k), reps=5),
-                "library_ms": cuda_ms(torch, lambda: F.conv2d(x_nchw, k_oihw, padding=1)),
-                "bytes": nbytes, "flops": flops,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-            }
-            phase("kernels", row)
-            if not err <= tol:
-                raise AssertionError(f"conv3x3 {layer} {dtype_name}: max abs err "
-                                     f"{err} > tol {tol}")
-            rows.append(row)
-            del x, k, got, want, lib
+        x = torch.randn((n, h, w, ci), generator=gen, device="cuda").to(dt)
+        bound = 1.0 / math.sqrt(9 * ci)  # torch's default conv init range
+        k = ((torch.rand((3, 3, ci, co), generator=gen, device="cuda") * 2 - 1)
+             * bound).to(dt)
+        kind = variant(dt, ci, co)
+        before = conv3x3.launches_by_variant[kind]
+        got = conv3x3(x, k)
+        launched = conv3x3.launches_by_variant[kind] - before
+        want = conv3x3_plain(x, k)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        # f32: summation order only; bf16: one output rounding (1 ulp of
+        # the largest value)
+        tol = 2e-4 if dt == torch.float32 else 2.0 ** -7 * want.float().abs().max().item()
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+        k_oihw = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = F.conv2d(x_nchw, k_oihw, padding=1)
+        lib_err = (lib.permute(0, 2, 3, 1).float() - want.float()).abs().max().item()
+        item = dt.itemsize
+        nbytes = (x.numel() + k.numel() + got.numel()) * item
+        flops = 2 * n * h * w * 9 * ci * co
+        bound_ms, bound_by = roofline(nbytes, flops, dtype_name)
+        pad_ms = None
+        if kind == "wgmma" and ci % 8:
+            # the alternative to the gather: channels zero-padded to a
+            # multiple of 8 by the caller, so that TMA takes the layer
+            pad = 8 - ci % 8
+            k8 = F.pad(k, (0, 0, 0, pad))
+            pad_err = (conv3x3(F.pad(x, (0, pad)), k8).float() - want.float()).abs().max().item()
+            if not pad_err <= tol:
+                raise AssertionError(f"conv3x3 {layer} {step} channel-padded: max abs err "
+                                     f"{pad_err} (tol {tol})")
+            pad_ms = cuda_ms(torch, lambda: conv3x3(F.pad(x, (0, pad)), k8))
+        row = {
+            "name": "conv3x3", "layer": layer, "step": step, "per_step": count,
+            "variant": kind, "dtype": dtype_name, "shape": [n, h, w, ci, co],
+            "max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
+            "ms": cuda_ms(torch, lambda: conv3x3(x, k)),
+            "call_ms": call_ms(torch, lambda: conv3x3(x, k)),
+            "plain_ms": cuda_ms(torch, lambda: conv3x3_plain(x, k), reps=3),
+            "library_ms": cuda_ms(torch, lambda: F.conv2d(x_nchw, k_oihw, padding=1)),
+            "channel_pad_tma_ms": pad_ms,
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        phase("kernels", row)
+        if not (err <= tol and launched == 1):
+            raise AssertionError(f"conv3x3 {layer} {step} {dtype_name}: max abs err {err} "
+                                 f"(tol {tol}), {launched} {kind} launches")
+        rows.append(row)
+        del x, k, got, want, lib
     torch.cuda.empty_cache()
     return rows
+
+
+def conv_per_step(rows):
+    """conv3x3 device ms, bound ms and F.conv2d ms per training step (bf16):
+    a USSS joint step runs G's trunk and S's three serving-shape convs; a
+    WSSS step its own rows."""
+    out = {}
+    for step, extra in (("usss_joint", "serve_chunk"), ("wsss_adversarial", None),
+                        ("wsss_g_pretrain", None)):
+        sel = [r for r in rows if r["dtype"] == "bfloat16" and r["step"] in (step, extra)]
+        out[step] = {key: sum(r["per_step"] * r[key] for r in sel)
+                     for key in ("ms", "bound_ms", "library_ms", "plain_ms")}
+        out[step]["launches"] = sum(r["per_step"] for r in sel)
+    return out
 
 
 def pool_rows(torch, F):
@@ -656,10 +716,10 @@ def serve_phase(torch, work, smodel):
     argv = ["--dir", work, "--smodel", smodel, "--ref-name", "ref.tif",
             "--batch-size", str(BATCH)]
     counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     out = infer.main(argv)
     launches = {name: fn.launches for name, fn in counters.items()}
+    variants = dict(counters["conv3x3"].launches_by_variant)
     n_tiles = math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2
     n_chunks = math.ceil(n_tiles / BATCH)
     k = _model_counts(torch, PATCH)
@@ -675,12 +735,13 @@ def serve_phase(torch, work, smodel):
         "oa_f1_finite": all(isinstance(out.get(k), float) and math.isfinite(out[k])
                             for k in ("oa", "f1")),
         "launches": launches == want,
+        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
     }
     warm = infer.main(argv)  # same scene again, everything built and cached
     phase("serve", {"px_per_s": out["px_per_s"], "seconds": out["seconds"],
                     "warm_px_per_s": warm["px_per_s"], "warm_seconds": warm["seconds"],
                     "pixels": out["pixels"], "chunks": n_chunks,
-                    "launches": launches, "derived_launches": want,
+                    "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
                     "oa": out["oa"], "f1": out["f1"],
                     "auc": out["auc"], "density_mean": float(density.mean()),
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -707,6 +768,13 @@ def parity_phase(torch, smodel, ds, gpu_cache):
                      "max_abs_density_diff": diff, "tol": 1e-3, "ok": ok})
     if not ok:
         raise AssertionError(f"parity: max abs density diff {diff} > 1e-3")
+
+
+def reset_launches(counters):
+    """Every kernel's launch count, and conv3x3's per variant, set to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+    counters["conv3x3"].launches_by_variant.update(wgmma=0, fma_f32=0)
 
 
 def kernel_counters():
@@ -740,12 +808,12 @@ def train_phase(torch, work):
             "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     t0 = time.perf_counter()
     out = demo_usss.main(argv)
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    variants = dict(counters["conv3x3"].launches_by_variant)
     want, per_step = derived_launches(torch, out["tiles"])
     ev = out["evaluator"]
     density = open_raster(out["density_path"]).read_block()[..., 0]
@@ -765,6 +833,7 @@ def train_phase(torch, work):
                                and density.min() >= 0 and density.max() <= 1),
         "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
         "launches": launches == want,
+        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
     }
     phase("train", {
         "seconds": seconds, "tiles": out["tiles"],
@@ -774,7 +843,8 @@ def train_phase(torch, work):
         "joint_epochs_per_s_warm": len(warm) / sum(warm),
         "tile_mpx_per_s_warm": out["tiles"] * PATCH * PATCH * len(warm) / sum(warm) / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "derived_launches": want, "per_step": per_step,
+        "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
+        "per_step": per_step,
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
@@ -904,12 +974,12 @@ def wsss_phase(torch, work):
             "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     t0 = time.perf_counter()
     out = demo_wsss.main(argv)
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    variants = dict(counters["conv3x3"].launches_by_variant)
     want, per_step = derived_wsss_launches(torch)
     names = sorted(n for n in os.listdir(os.path.join(root, "before")) if n.endswith(".tif"))
     changed = [ln.split(",")[0] for ln in open(os.path.join(root, "label.txt")).read().split()
@@ -939,6 +1009,7 @@ def wsss_phase(torch, work):
         "confusion_covers_changed": bool(
             ev.confusion_matrix.sum() == WSSS_SLICES[0] * WSSS_SIZE ** 2),
         "launches": launches == want,
+        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
     }
     phase("wsss", {
         "seconds": seconds, "pairs": pairs, "slice_px": WSSS_SIZE,
@@ -948,7 +1019,8 @@ def wsss_phase(torch, work):
         "adv_epochs_per_s_warm": len(warm) / sum(warm),
         "slice_mpx_per_s_warm": 2 * pairs * WSSS_SIZE ** 2 * len(warm) / sum(warm) / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "derived_launches": want, "per_step": per_step,
+        "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
+        "per_step": per_step,
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"wsss checks failed: {checks}")
@@ -1041,14 +1113,14 @@ def wsss_parity_phase(torch, root):
                              f"{n_calls} calls")
 
 
-def record(name, source, replaces, rows, launches):
+def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
-    main path's working type, each row times its count per step (one
-    serving chunk for conv3x3; one USSS joint step for the others, so the
-    Discriminator's channel-sum rows of a WSSS step stay in the per-shape
-    detail)."""
+    main path's working type in ``step``, each row times its count per step
+    (one serving chunk for conv3x3, comparable with its earlier slices; one
+    USSS joint step for the others, so the Discriminator's channel-sum rows
+    of a WSSS step stay in the per-shape detail)."""
     dt = "bfloat16" if any(r["dtype"] == "bfloat16" for r in rows) else "float32"
-    rows = [r for r in rows if r["dtype"] == dt and r.get("step", "usss_joint") == "usss_joint"]
+    rows = [r for r in rows if r["dtype"] == dt and r.get("step", "usss_joint") == step]
     by = {}
     for r in rows:
         k = r.get("per_step", 1)
@@ -1115,12 +1187,14 @@ def main():
     records = []
     for name, (src, site) in sites.items():
         r = record(name, f"fcdgan_tpu_torch/csrc/{src}", f"fcdgan_tpu/ops/pallas/{site}",
-                   rows[name], launches[name])
+                   rows[name], launches[name],
+                   "serve_chunk" if name == "conv3x3" else "usss_joint")
         r["wsss_launches"] = wsss_launches[name]
         records.append(r)
     for r in records:
         r["serve_launches"] = serve_launches[r["name"]]
     summary = {"kernels": records, "card": smi,
+               "conv3x3_per_step": conv_per_step(rows["conv3x3"]),
                "per_shape": [r for v in rows.values() for r in v],
                "seconds": time.perf_counter() - t_start}
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

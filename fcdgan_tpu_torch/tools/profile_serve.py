@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
-    ("conv3x3 kernel", ("conv3x3_nhwc_kernel",)),
+    ("conv3x3 kernel", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("cudnn/cutlass conv", ("conv", "xmma", "implicit", "cutlass", "sm90_", "gemm",
                             "nchwtonhwc", "nhwctonchw")),
     ("pool/upsample", ("pool", "upsample", "interp")),

@@ -40,7 +40,7 @@ from .profile_serve import device_summary
 WSSS_SIZE = 200  # px, the side of a WHU Building CD slice
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
-    ("conv3x3 kernel", ("conv3x3_nhwc_kernel",)),
+    ("conv3x3 kernel", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("pool_bwd kernel", ("pool_bwd_nhwc_kernel",)),
     ("phase_pool kernel", ("phase_pool_nhwc_kernel",)),
     ("channel_sums kernels (BN statistics)", ("channel_partials_kernel",

@@ -20,27 +20,83 @@ def _inputs(shape, seed=0):
     return x, k
 
 
+def _conv_on_card(shape, dtype, seed=2):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, k = _inputs(shape, seed=seed)
+    dt = getattr(torch, dtype)
+    return torch.from_numpy(x).cuda().to(dt), torch.from_numpy(k).cuda().to(dt)
+
+
+def _assert_conv_matches_plain(xt, kt, got):
+    want = conv3x3_plain(xt, kt)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    # f32: summation order only; bf16: one rounding of the output (1 ulp)
+    tol = (2e-4 if xt.dtype == torch.float32
+           else 2.0 ** -7 * want.float().abs().max().item())
+    assert err <= tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 20, 24, 8, 16), (1, 22, 20, 64, 64),
                                    (3, 13, 13, 3, 64), (2, 9, 27, 64, 128)])
 def test_conv3x3_kernel_matches_plain(shape, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    x, k = _inputs(shape, seed=2)
-    dt = getattr(torch, dtype)
-    xt = torch.from_numpy(x).cuda().to(dt)
-    kt = torch.from_numpy(k).cuda().to(dt)
+    xt, kt = _conv_on_card(shape, dtype)
     before = conv3x3.launches
     got = conv3x3(xt, kt)
     torch.cuda.synchronize()
     assert conv3x3.launches == before + 1
-    want = conv3x3_plain(xt, kt)
-    err = (got.float() - want.float()).abs().max().item()
-    # f32: summation order only; bf16: one rounding of the output (1 ulp)
-    tol = 2e-4 if dtype == "float32" else 2.0 ** -7 * want.float().abs().max().item()
-    assert err <= tol
+    _assert_conv_matches_plain(xt, kt, got)
+
+
+# every model shape class at small N (C_in 3 and 64, C_out 64 and 128), ragged
+# edges (W 220, 27, 9; H 8), C_out 16 and 24, C_in 8 (TMA with the channels
+# zero-filled to 64), odd widths on both loaders, and batches with several
+# tiles per persistent block (3 x 220 x 220: 2352 tiles on 132 SMs), for the
+# gather also at 4, 5 and 9 K blocks a tile (C_in 25, 33, 63)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 16, 32, 3, 64), (2, 16, 32, 64, 64), (2, 16, 32, 64, 128), (2, 16, 32, 3, 128),
+    (1, 12, 220, 64, 64), (2, 19, 27, 64, 128), (3, 8, 9, 3, 64), (2, 8, 40, 64, 64),
+    (2, 20, 24, 64, 16), (2, 20, 24, 3, 24), (2, 17, 23, 8, 64), (2, 11, 13, 5, 7),
+    (1, 9, 10, 40, 33), (1, 10, 9, 63, 128), (3, 220, 220, 64, 64),
+    (2, 200, 200, 3, 64), (4, 64, 72, 33, 64), (3, 220, 220, 63, 128),
+    (16, 64, 72, 25, 24)])
+def test_conv3x3_wgmma_matches_plain(shape):
+    xt, kt = _conv_on_card(shape, "bfloat16", seed=3)
+    before = dict(conv3x3.launches_by_variant)
+    got = conv3x3(xt, kt)
+    torch.cuda.synchronize()
+    assert conv3x3.launches_by_variant == {**before, "wgmma": before["wgmma"] + 1}
+    _assert_conv_matches_plain(xt, kt, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kind", [("bfloat16", "wgmma"), ("float32", "fma_f32")])
+@pytest.mark.parametrize("shape", [(4, 64, 72, 64, 128), (4, 64, 72, 3, 64),
+                                   (16, 64, 72, 25, 24)])
+def test_conv3x3_is_bitwise_repeatable(shape, dtype, kind):
+    xt, kt = _conv_on_card(shape, dtype, seed=4)
+    before = conv3x3.launches_by_variant[kind]
+    a, b = conv3x3(xt, kt), conv3x3(xt, kt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert conv3x3.launches_by_variant[kind] == before + 2
+
+
+@pytest.mark.cuda
+def test_conv3x3_wgmma_raises_on_misaligned_input():
+    xt, kt = _conv_on_card((1, 8, 8, 64, 64), "bfloat16")
+    buf = torch.zeros(xt.numel() + 1, dtype=xt.dtype, device="cuda")
+    shifted = buf[1:].view(xt.shape)  # contiguous, 2 bytes past a 16-byte boundary
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = conv3x3.launches
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3(shifted, kt)
+    assert conv3x3.launches == before
 
 
 @pytest.mark.cuda
