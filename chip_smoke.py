@@ -31,14 +31,19 @@ Phases, each printed on its own line; any failure exits non-zero:
                         N=60), bf16 and f32, bit-equal; library
                         aten.max_pool2d_with_indices_backward
              fused_ssim the 5 MS-SSIM levels of one step (N=10, 3 bands),
-                        f32, atol 2e-5
+                        f32, atol 2e-5; each row with its tile and tiles
              channel_sums, channel_sums_pair  every distinct BN input of one
                         USSS joint step (batch 10, bf16) and the
                         Discriminator's three of a WSSS step, each with its
                         count per step, recorded from train-mode forwards of
                         the models; within 1e-5 of the sum of magnitudes per
                         channel; library torch.var_mean and
-                        torch.batch_norm_backward_reduce
+                        torch.batch_norm_backward_reduce; each row with its
+                        blocks per launch
+           and for these three: exactly one device launch per call (the
+           kernels, copies and fills a torch.profiler trace of three warm
+           calls shows, the same kernel once a call) and three calls bitwise
+           equal
              phase_pool every max-pool forward of a USSS joint step (recorded
                         the same way), bf16 and f32, bit-equal to its plain
                         version and to F.max_pool2d
@@ -216,6 +221,41 @@ def call_ms(torch, fn, reps=20):
     return statistics.median(times)
 
 
+def device_launches(torch, fn, calls=3, traces=3):
+    """The kernels, copies and fills that ``calls`` warm calls of ``fn`` put
+    on the card, by name, from a torch.profiler trace (not the wrappers'
+    counters): one list per call, cut in order. A trace with no device event
+    at all is a dropped trace, not a count (the calls' results are checked
+    elsewhere), and is taken again, at most ``traces`` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in sorted(prof.events(), key=lambda ev: ev.time_range.start)
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)]
+        if names:
+            break
+    per = -(-len(names) // calls)
+    return [names[i:i + per] for i in range(0, len(names), per)] or [[]] * calls
+
+
+def one_launch_each(launched):
+    """Whether every call's list is the same single kernel."""
+    return all(len(c) == 1 and c == launched[0] for c in launched)
+
+
+def repeatable(torch, fn, calls=3):
+    """Whether ``calls`` calls of ``fn`` give bitwise equal tensors."""
+    outs = [[t.clone() for t in fn()] for _ in range(calls)]
+    return all(torch.equal(a, b) for other in outs[1:] for a, b in zip(outs[0], other))
+
+
 def device_phase():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -377,7 +417,7 @@ def pool_rows(torch, F):
 
 def ssim_rows(torch):
     """fused_ssim at the 5 MS-SSIM levels of a step, f32, atol 2e-5."""
-    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain, tile_plan
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -389,6 +429,9 @@ def ssim_rows(torch):
         want = ssim_level_plain(x, y, 1.0)
         torch.cuda.synchronize()
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        launched = device_launches(torch, lambda: ssim_level(x, y, 1.0))
+        same = repeatable(torch, lambda: ssim_level(x, y, 1.0))
+        plan = tile_plan(n, h, w, k, torch.cuda.get_device_properties(0).multi_processor_count)
         vh, vw = h - k + 1, w - k + 1
         # x and y read once, two (N, C) tables written; operations: the three
         # products per pixel, 5 maps x K taps of multiply-add along H over
@@ -398,14 +441,19 @@ def ssim_rows(torch):
         bound_ms, bound_by = roofline(nbytes, flops, "float32")
         row = {"name": "fused_ssim", "layer": f"level {h}x{w}", "dtype": "float32",
                "shape": [n, h, w, c], "max_abs_err": err, "tol": 2e-5,
+               "tile": [plan.th, plan.tw], "tiles": n * plan.tiles_y * plan.tiles_x,
+               "device_launches_per_call": launched[0],
+               "one_device_launch_each_of_3_calls": one_launch_each(launched),
+               "bitwise_repeatable": same,
                "ms": cuda_ms(torch, lambda: ssim_level(x, y, 1.0)),
                "call_ms": call_ms(torch, lambda: ssim_level(x, y, 1.0)),
                "plain_ms": cuda_ms(torch, lambda: ssim_level_plain(x, y, 1.0), reps=5),
                "library_ms": None, "bytes": nbytes, "flops": flops,
                "bound_ms": bound_ms, "bound_by": bound_by}
         phase("kernels", row)
-        if not err <= 2e-5:
-            raise AssertionError(f"fused_ssim {h}x{w}: max abs err {err} > 2e-5")
+        if not (err <= 2e-5 and one_launch_each(launched) and same):
+            raise AssertionError(f"fused_ssim {h}x{w}: max abs err {err} (tol 2e-5), "
+                                 f"device launches {launched}, repeatable {same}")
         rows.append(row)
     return rows
 
@@ -477,9 +525,10 @@ def bn_rows(torch, shapes):
     within 1e-5 of the sum of magnitudes per channel of the plain version."""
     from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
                                                    channel_sums_pair_plain,
-                                                   channel_sums_plain)
+                                                   channel_sums_plain, reduction_plan)
 
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(3)
     dt = torch.bfloat16
     for step, shape, count in shapes:
@@ -491,19 +540,22 @@ def bn_rows(torch, shapes):
         zero = torch.zeros(c, device="cuda")
         one = torch.ones(c, device="cuda")
         cases = (
-            ("channel_sums", lambda: channel_sums(x, square=True),
+            ("channel_sums", 1, lambda: channel_sums(x, square=True),
              lambda: channel_sums_plain(x, square=True),
              lambda: torch.var_mean(x, dim=(0, 1, 2), correction=0),
              (xf.abs().sum(0), xf.square().sum(0)), x.numel() * dt.itemsize, 3 * x.numel()),
-            ("channel_sums_pair", lambda: channel_sums_pair(dy, x),
+            ("channel_sums_pair", 2, lambda: channel_sums_pair(dy, x),
              lambda: channel_sums_pair_plain(dy, x),
              lambda: torch.batch_norm_backward_reduce(dy_nchw, x_nchw, zero, one, None,
                                                       True, False, False),
              (dyf.abs().sum(0), (dyf * xf).abs().sum(0)), 2 * x.numel() * dt.itemsize,
              3 * x.numel()))
-        for name, kernel, plain, library, scales, in_bytes, flops in cases:
+        for name, inputs, kernel, plain, library, scales, in_bytes, flops in cases:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
+            launched = device_launches(torch, kernel)
+            same = repeatable(torch, kernel)
+            plan = reduction_plan(x.numel() // c, c, dt.itemsize, sms, inputs)
             err = max((g - w).abs().max().item() for g, w in zip(got, want))
             ratio = max(((g - w).abs() / (1e-5 * sc + 1e-30)).max().item()
                         for g, w, sc in zip(got, want, scales))
@@ -517,13 +569,18 @@ def bn_rows(torch, shapes):
                    "dtype": "bfloat16", "shape": list(shape), "per_step": count,
                    "max_abs_err": err, "err_over_tol": ratio,
                    "tol": "1e-5 * sum|x| per channel",
+                   "blocks": plan.blocks * plan.ctiles, "rows_per_block": plan.rows_per_block,
+                   "device_launches_per_call": launched[0],
+                   "one_device_launch_each_of_3_calls": one_launch_each(launched),
+                   "bitwise_repeatable": same,
                    "ms": cuda_ms(torch, kernel), "call_ms": call_ms(torch, kernel),
                    "plain_ms": cuda_ms(torch, plain, reps=5), "library_ms": library_ms,
                    "library_error": library_error, "bytes": nbytes, "flops": flops,
                    "bound_ms": bound_ms, "bound_by": bound_by}
             phase("kernels", row)
-            if not ratio <= 1.0:
-                raise AssertionError(f"{name} {shape}: error {ratio} x the tolerance")
+            if not (ratio <= 1.0 and one_launch_each(launched) and same):
+                raise AssertionError(f"{name} {shape}: error {ratio} x the tolerance, "
+                                     f"device launches {launched}, repeatable {same}")
             rows.append(row)
         del x, dy, xf, dyf
     torch.cuda.empty_cache()

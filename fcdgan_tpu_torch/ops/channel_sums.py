@@ -14,8 +14,10 @@ of a channels_last NCHW activation, and return f32 per-channel sums:
 The JAX kernels' lane-phase packing (``_flat_view``, C = 64 packed two
 pixels per 128-lane row) is a TPU layout and not ported; the port's ``bn``
 has no W-space-to-depth ``phases`` and no cross-device ``axis_name`` yet.
-The kernels are ``csrc/channel_sums.cu``; its note says what bounds them and
-what their design does about it.
+The kernel is ``csrc/channel_sums.cu``, one launch per call; its note says
+what bounds it and what its design does about it. ``reduction_plan`` sizes
+the launch to the input; each stream's ticket counter comes from
+``ops.tickets``.
 
 Each function launches its kernel for a CUDA tensor and runs the plain
 version (the JAX package's ``_moment_sums`` / ``_pair_sums`` jnp branches,
@@ -30,13 +32,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
+from .tickets import MAX_TICKETS, sm_count, stream_and_counter
+
 SOURCE = "channel_sums"
-BLOCKS_PER_SM = 4
-THREADS = 256
+BLOCKS_PER_SM = 1      # resident cap of the grid (the kernel's launch bounds)
+BLOCK_BYTES = 32 << 10  # input bytes a block reads, where the cap allows
+THREADS = 512
+MAX_CTILE = 8           # 16-byte channel vectors of a channel tile (kMaxCtile)
 
 
 def channel_sums_plain(x: torch.Tensor, square: bool = False
@@ -88,25 +94,43 @@ def _kernel(dtype: torch.dtype):
 
     lib = load(SOURCE)
     fn = lib.fcd_channel_sums_bf16 if dtype == torch.bfloat16 else lib.fcd_channel_sums_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+class Plan(NamedTuple):
+    """The launch of one call: per channel tile of ``ctile`` 16-byte vectors
+    (``ctiles`` of them), ``blocks`` row blocks of ``rows_per_block``
+    contiguous rows (the last may be shorter, none is empty), each block's
+    threads ``ctile`` x ``row_lanes``; ``partial`` f32 of scratch."""
+    blocks: int
+    rows_per_block: int
+    ctiles: int
+    ctile: int
+    row_lanes: int
+    partial: int
 
 
-def grid_blocks(rows: int, c: int, itemsize: int, sms: int) -> int:
-    """Row blocks of the partial-sums launch: about ``BLOCKS_PER_SM`` blocks
-    per SM over all channel tiles, and no more than there are row strides."""
-    groups = c // (16 // itemsize)
-    ctile = min(groups, THREADS)
+@functools.lru_cache(maxsize=4096)
+def reduction_plan(rows: int, c: int, itemsize: int, sms: int, inputs: int = 1,
+                   nstat: int = 2) -> Plan:
+    """The grid of one call over ``inputs`` (R, C) matrices: channel tiles of
+    the largest power of two of vectors up to ``MAX_CTILE``, about
+    ``BLOCK_BYTES`` of input per block, at most ``BLOCKS_PER_SM`` blocks per
+    SM over all tiles, and each block one contiguous row range."""
+    vec = 16 // itemsize
+    groups = c // vec
+    ctile = 1 << (min(groups, MAX_CTILE).bit_length() - 1)
     ctiles = -(-groups // ctile)
-    row_lanes = THREADS // ctile
-    return max(1, min(-(-rows // row_lanes), BLOCKS_PER_SM * sms // ctiles))
+    cap = max(1, BLOCKS_PER_SM * sms // ctiles)
+    want = -(-rows * ctile * 16 * inputs // BLOCK_BYTES)
+    blocks = max(1, min(cap, want, rows))
+    rows_per_block = -(-rows // blocks)
+    blocks = -(-rows // rows_per_block)
+    return Plan(blocks, rows_per_block, ctiles, ctile, THREADS // ctile,
+                ctiles * blocks * nstat * ctile * vec)
 
 
 def _launch(mode: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,16 +138,21 @@ def _launch(mode: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = a.shape[-1]
     rows = a.numel() // c
     nstat = 1 if mode == 0 else 2
-    blocks = grid_blocks(rows, c, a.element_size(), _sm_count(a.device.index or 0))
-    buf = torch.empty(nstat * c * (1 + blocks), dtype=torch.float32, device=a.device)
-    out = buf[:nstat * c].view(nstat, c)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel(a.dtype)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  buf[nstat * c:].data_ptr(), rows, c, blocks, mode, stream)
+    dev = a.device
+    plan = reduction_plan(rows, c, a.element_size(), sm_count(dev.index),
+                          2 if mode == 2 else 1, nstat)
+    if plan.ctiles > MAX_TICKETS:
+        raise ValueError(f"channel_sums: {c} channels exceed the kernel's "
+                         f"{MAX_TICKETS} channel tiles")
+    # the sums, then the per-block partial rows: one allocation
+    buf = torch.empty(nstat * c + plan.partial, dtype=torch.float32, device=dev)
+    stream, counter = stream_and_counter(dev)
+    status = _kernel(a.dtype)(a.data_ptr(), b.data_ptr(), buf.data_ptr(),
+                              buf.data_ptr() + 4 * nstat * c, counter, rows,
+                              plan.rows_per_block, c, plan.blocks, mode, stream)
     if status != 0:
         raise RuntimeError(f"channel_sums kernel launch failed: cudaError_t {status}")
-    return out
+    return buf[:nstat * c].view(nstat, c)
 
 
 def channel_sums(x: torch.Tensor, square: bool = False

@@ -13,24 +13,26 @@ smaller levels to the composite). Inputs are NHWC float32, as there.
 
 ``ssim_level`` launches the kernel for CUDA tensors and runs the plain
 composite for CPU tensors; it raises on anything else.
-``ssim_level.launches`` counts kernel launches (one per level, each a tile
-pass and a per-plane reduction).
+``ssim_level.launches`` counts kernel launches: one per level, which tiles
+the level (``tile_plan``) and forms the per-plane means in its last block.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .ssim import _ssim_maps, gaussian_window
+from .tickets import MAX_TICKETS, sm_count, stream_and_counter
 
 SOURCE = "fused_ssim"
-TILE = 32        # output tile side of the kernel (kTile)
-MAX_WIN = 11     # largest window the kernel takes (kMaxWin)
+TILE_W = 32          # output columns of a tile (kTW)
+TILE_HEIGHTS = (8, 4, 2, 1)  # output rows of a tile, the largest that fills the card
+MAX_WIN = 11         # largest window the kernel takes (kMaxWin)
 
 
 def ssim_level_plain(x, y, data_range=1.0, win_size=11, win_sigma=1.5,
@@ -53,12 +55,32 @@ def _check(x: torch.Tensor, y: torch.Tensor, win_size: int) -> None:
                          f"{win_size} for {tuple(x.shape)}")
 
 
+class TilePlan(NamedTuple):
+    """Output tiles of one level: ``th`` x ``tw`` valid positions,
+    ``tiles_y`` x ``tiles_x`` of them per image, one block each."""
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(n: int, h: int, w: int, win_size: int, sms: int) -> TilePlan:
+    """Tiles ``TILE_W`` wide (or the valid width), as tall as
+    ``TILE_HEIGHTS`` allows while the launch still has a block per SM."""
+    vh, vw = h - win_size + 1, w - win_size + 1
+    tw = min(TILE_W, vw)
+    tiles_x = -(-vw // tw)
+    th = next((t for t in TILE_HEIGHTS if n * tiles_x * -(-vh // t) >= sms), TILE_HEIGHTS[-1])
+    return TilePlan(th, tw, -(-vh // th), tiles_x)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     from .build import load
 
     fn = load(SOURCE).fcd_ssim_level_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_float), ctypes.c_float, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -70,30 +92,40 @@ def _taps(win_size: int, win_sigma: float):
     return (ctypes.c_float * win_size)(*gaussian_window(win_size, win_sigma).tolist())
 
 
+@functools.lru_cache(maxsize=None)
+def _constants(data_range: float, k1: float, k2: float) -> Tuple[float, float]:
+    """c1, c2 rounded to f32, as the JAX kernel's."""
+    return (float(np.float32((k1 * data_range) ** 2)),
+            float(np.float32((k2 * data_range) ** 2)))
+
+
 def _launch(x, y, data_range, win_size, win_sigma, k1, k2):
     if win_size > MAX_WIN:
         raise ValueError(f"the fused_ssim kernel takes win_size <= {MAX_WIN}, "
                          f"not {win_size}")
     n, h, w, c = x.shape
-    if n * c > 65535:
-        raise ValueError(f"ssim_level: {n * c} planes exceed the kernel's grid")
-    fn = _kernel()
-    x, y = x.contiguous(), y.contiguous()
-    vh, vw = h - win_size + 1, w - win_size + 1
-    tiles = -(-vh // TILE) * -(-vw // TILE)
+    if n > MAX_TICKETS:
+        raise ValueError(f"ssim_level: the kernel takes at most {MAX_TICKETS} images, "
+                         f"not {n}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not y.is_contiguous():
+        y = y.contiguous()
+    dev = x.device
+    plan = tile_plan(n, h, w, win_size, sm_count(dev.index))
+    tiles = plan.tiles_y * plan.tiles_x
     # the two (N, C) tables, then the per-tile partial sums: one allocation
-    buf = torch.empty(2 * n * c * (1 + tiles), dtype=torch.float32, device=x.device)
-    ssim_pc, cs_pc = buf[:2 * n * c].view(2, n, c)
-    c1 = float(np.float32((k1 * data_range) ** 2))
-    c2 = float(np.float32((k2 * data_range) ** 2))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(x.data_ptr(), y.data_ptr(), ssim_pc.data_ptr(), cs_pc.data_ptr(),
-                    buf[2 * n * c:].data_ptr(), n, h, w, c, win_size,
-                    _taps(win_size, win_sigma), c1, c2, stream)
+    buf = torch.empty(2 * n * c * (1 + tiles), dtype=torch.float32, device=dev)
+    c1, c2 = _constants(data_range, k1, k2)
+    stream, counter = stream_and_counter(dev)
+    ptr = buf.data_ptr()
+    status = _kernel()(x.data_ptr(), y.data_ptr(), ptr, ptr + 4 * n * c, ptr + 8 * n * c,
+                       counter, n, h, w, c, win_size, plan.th, plan.tw,
+                       _taps(win_size, win_sigma), c1, c2, stream)
     if status != 0:
         raise RuntimeError(f"fused_ssim kernel launch failed: cudaError_t {status}")
     ssim_level.launches += 1
+    ssim_pc, cs_pc = buf[:2 * n * c].view(2, n, c)
     return ssim_pc, cs_pc
 
 

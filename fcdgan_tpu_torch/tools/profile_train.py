@@ -43,9 +43,8 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("conv3x3 kernel", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("pool_bwd kernel", ("pool_bwd_nhwc_kernel",)),
     ("phase_pool kernel", ("phase_pool_nhwc_kernel",)),
-    ("channel_sums kernels (BN statistics)", ("channel_partials_kernel",
-                                              "channel_final_kernel")),
-    ("fused_ssim kernel", ("ssim_tile_kernel", "ssim_plane_mean_kernel")),
+    ("channel_sums kernels (BN statistics)", ("channel_sums_kernel",)),
+    ("fused_ssim kernel", ("ssim_level_kernel",)),
     ("cudnn/cutlass conv fwd+bwd", ("conv", "xmma", "implicit", "cutlass", "sm90_",
                                     "gemm", "wgrad", "dgrad", "nchwtonhwc",
                                     "nhwctonchw")),

@@ -253,23 +253,24 @@ def test_phase_pool_kernel_is_bit_equal_to_plain(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(8, 96, 96, 64), (8, 96, 96, 128)])
+@pytest.mark.parametrize("shape", [(16, 96, 96, 64), (8, 96, 96, 128)])
 def test_channel_sums_kernels_count_every_row(shape, dtype):
-    """Rows past four grid strides, so the unrolled main loop runs. Small
-    integers make every partial sum exact in f32 in any order, so the sums
-    must equal the float64 sums exactly: one row lost or read twice moves a
-    channel's sum by at least 1."""
+    """Blocks of more rows than one batch of loads, so the unrolled main
+    loop runs, then the predicated last batch. Small integers make every
+    partial sum exact in f32 in any order, so the sums must equal the
+    float64 sums exactly: one row lost or read twice moves a channel's sum
+    by at least 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from fcdgan_tpu_torch.ops.channel_sums import (THREADS, channel_sums, channel_sums_pair,
-                                                   grid_blocks)
+    from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
+                                                   reduction_plan)
 
     dt = getattr(torch, dtype)
     rows, c = int(np.prod(shape[:-1])), shape[-1]
     itemsize = torch.empty((), dtype=dt).element_size()
-    row_lanes = THREADS // min(c // (16 // itemsize), THREADS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert rows > 4 * grid_blocks(rows, c, itemsize, sms) * row_lanes
+    plan = reduction_plan(rows, c, itemsize, sms)
+    assert plan.rows_per_block > 16 * plan.row_lanes  # 16 loads in flight a thread
     rng = np.random.default_rng(8)
     a = rng.integers(1, 5, size=shape).astype(np.float64)
     b = rng.integers(1, 5, size=shape).astype(np.float64)
@@ -279,6 +280,155 @@ def test_channel_sums_kernels_count_every_row(shape, dtype):
     want = (a2.sum(0), np.square(a2).sum(0), a2.sum(0), (a2 * b2).sum(0))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), torch.from_numpy(w.astype(np.float32)))
+
+
+def _sums_on_card(shape, dtype, seed):
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums, channel_sums_pair
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(rng.normal(0.5, 2.0, size=shape).astype(np.float32)).cuda().to(dt)
+    b = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dt)
+    return a, b, lambda: (channel_sums(a), *channel_sums(a, square=True),
+                          *channel_sums_pair(a, b))
+
+
+def _assert_sums_match_plain(a, b, got):
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums_pair_plain, channel_sums_plain
+
+    c = a.shape[-1]
+    af, bf = a.float().reshape(-1, c), b.float().reshape(-1, c)
+    want = (channel_sums_plain(a), *channel_sums_plain(a, square=True),
+            *channel_sums_pair_plain(a, b))
+    scale = (af.abs().sum(0), af.abs().sum(0), af.square().sum(0), af.abs().sum(0),
+             (af * bf).abs().sum(0))
+    for g, w, s in zip(got, want, scale):
+        assert g.shape == (c,)
+        assert bool(((g - w).abs() <= 1e-5 * s + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8), (1, 1, 1, 64), (1, 1, 1, 1024),
+                                   (2, 3, 3, 1024), (20, 220, 220, 64), (30, 13, 13, 512),
+                                   (2, 9, 9, 96)])
+def test_channel_sums_one_launch_bitwise_repeatable(shape, dtype):
+    """One row, C = 1024, a partly filled last channel tile (96 bf16
+    channels), the largest BN input: within the tolerance of the plain sums,
+    and three calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, calls = _sums_on_card(shape, dtype, seed=9)
+    runs = [[t.clone() for t in calls()] for _ in range(3)]
+    torch.cuda.synchronize()
+    _assert_sums_match_plain(a, b, runs[0])
+    assert all(torch.equal(x, y) for other in runs[1:] for x, y in zip(runs[0], other))
+
+
+@pytest.mark.cuda
+def test_channel_sums_back_to_back_and_on_two_streams():
+    """Calls of different shapes queued back to back, and calls on two
+    streams at once: each stream has its own ticket counters, which every
+    launch leaves at 0, so every result is right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cases = [_sums_on_card(shape, "bfloat16", seed=10 + i)
+             for i, shape in enumerate([(10, 110, 110, 128), (2, 5, 7, 1024), (20, 55, 55, 256),
+                                        (1, 1, 1, 64)])]
+    got = [calls() for _, _, calls in cases + cases]  # no synchronize between
+    torch.cuda.synchronize()
+    for (a, b, _), g in zip(cases + cases, got):
+        _assert_sums_match_plain(a, b, g)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    results = []
+    for _ in range(10):
+        for stream, (a, b, calls) in zip(streams, cases[:2]):
+            with torch.cuda.stream(stream):
+                results.append((a, b, calls()))
+    torch.cuda.synchronize()
+    for a, b, g in results:
+        _assert_sums_match_plain(a, b, g)
+
+
+def _ssim_on_card(shape, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=shape).astype(np.float32)
+    y = np.clip(x + rng.normal(scale=0.08, size=shape), 0, 1).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("hw", [(11, 11), (14, 14), (28, 28), (55, 55), (110, 110),
+                                (220, 220), (23, 17), (70, 33)])
+def test_fused_ssim_levels_match_plain(hw, c):
+    """Every MS-SSIM level size of a step (11: one valid position), two
+    non-square planes, one to four channels: within 2e-5 of the plain
+    composite, one launch, three calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    xt, yt = _ssim_on_card((3, *hw, c))
+    before = ssim_level.launches
+    runs = [[t.clone() for t in ssim_level(xt, yt, 1.0)] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ssim_level.launches == before + 3
+    for g, w in zip(runs[0], ssim_level_plain(xt, yt, 1.0)):
+        assert g.shape == (3, c)
+        assert (g - w).abs().max().item() <= 2e-5
+    assert all(torch.equal(a, b) for other in runs[1:] for a, b in zip(runs[0], other))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,win", [((2, 40, 48, 5), 11), ((2, 40, 48, 3), 7),
+                                       ((1, 9, 30, 2), 5)])
+def test_fused_ssim_more_channels_and_other_windows(shape, win):
+    """Five channels (staged four at a time) and windows other than 11
+    (the taps not unrolled)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain
+
+    torch.backends.cudnn.allow_tf32 = False
+    xt, yt = _ssim_on_card(shape, seed=12)
+    for g, w in zip(ssim_level(xt, yt, 1.0, win), ssim_level_plain(xt, yt, 1.0, win)):
+        assert (g - w).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_redesigned_reductions_launch_once():
+    """Three warm calls of channel_sums, channel_sums_pair or ssim_level put
+    exactly three kernels on the card, the same one each (a torch.profiler
+    trace; a trace with no device event at all was dropped and is taken
+    again)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums, channel_sums_pair
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level
+
+    a, b, _ = _sums_on_card((4, 32, 32, 128), "bfloat16", seed=13)
+    xt, yt = _ssim_on_card((2, 55, 55, 3))
+    for fn in (lambda: channel_sums(a, square=True), lambda: channel_sums_pair(a, b),
+               lambda: ssim_level(xt, yt, 1.0)):
+        fn()
+        torch.cuda.synchronize()
+        names = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(ev, "is_user_annotation", False)]
+            if names:
+                break
+        assert len(names) == 3 and len(set(names)) == 1, names
 
 
 @pytest.mark.cuda
