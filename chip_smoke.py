@@ -26,15 +26,21 @@ Phases, each printed on its own line; any failure exits non-zero:
                         conv2; library F.conv2d; the 3-band rows also time
                         the layer with its input zero-padded to 8 channels,
                         pad included, which TMA takes (channel_pad_tma_ms)
-             pool_bwd   the 8 max-pool backwards of one training step (the
+             pool_bwd   the 8 max-pool backwards of one USSS step (the
                         Segmentor's 4 at N=20, the per-band VGG's 4 at
-                        N=60), bf16 and f32, bit-equal; library
-                        aten.max_pool2d_with_indices_backward
-             fused_ssim the 5 MS-SSIM levels of one step (N=10, 3 bands),
-                        f32, atol 2e-5; each row with its tile and tiles
+                        N=60) and of the RSSS steps (S's 4 at N=24, the
+                        4-band VGG's at N=96 in an adversarial step and 80
+                        in a G-pretrain step), bf16 and f32, bit-equal;
+                        library aten.max_pool2d_with_indices_backward
+             fused_ssim the 5 MS-SSIM levels of one USSS step (N=10, 3
+                        bands) and of an RSSS adversarial step (N=12, 4
+                        bands, 200 to 13 px), f32, atol 2e-5; each row with
+                        its tile and tiles
              channel_sums, channel_sums_pair  every distinct BN input of one
-                        USSS joint step (batch 10, bf16) and the
-                        Discriminator's three of a WSSS step, each with its
+                        USSS joint step (batch 10, bf16), the
+                        Discriminator's three of a WSSS step, and those of
+                        an RSSS G-pretrain step (G at N=20) and adversarial
+                        step (S at N=24, D's three at N=24), each with its
                         count per step, recorded from train-mode forwards of
                         the models; within 1e-5 of the sum of magnitudes per
                         channel; library torch.var_mean and
@@ -44,9 +50,10 @@ Phases, each printed on its own line; any failure exits non-zero:
            kernels, copies and fills a torch.profiler trace of three warm
            calls shows, the same kernel once a call) and three calls bitwise
            equal
-             phase_pool every max-pool forward of a USSS joint step (recorded
-                        the same way), bf16 and f32, bit-equal to its plain
-                        version and to F.max_pool2d
+             phase_pool every max-pool forward of a USSS joint step and of
+                        the two RSSS steps (recorded the same way), bf16 and
+                        f32, bit-equal to its plain version and to
+                        F.max_pool2d
   serve    tools.infer.main on a 2048x2048 3-band uint16 scene with a seeded
            full-width Segmentor (bf16): output rasters, density in [0, 1],
            finite oa/f1, conv3x3 launched 3 times and phase_pool 4 times per
@@ -84,6 +91,27 @@ Phases, each printed on its own line; any failure exits non-zero:
            gradient norms (rtol 1e-3), BN running stats of S and D (atol
            1e-4), and the BN kernels against the plain sums on the step's own
            BN inputs (1e-5 of the sum of magnitudes)
+  rsss     demos.demo_rsss.main on a synthetic OSCD layout: train scenes
+           alpha and beta, test scene gamma, each 1024x1024 with 4 uint16
+           bands (Sentinel-2 L1C's type), change rectangles across the scene
+           and regions grown around them (36 tiles a scene at patch 200,
+           padding 10), bf16, the default batches 20 and 12, 1 G-pretrain +
+           3 adversarial epochs, each followed by the train-mode-BN test
+           evaluation, then the eval-mode inference into a density and a
+           color raster per test scene: every artifact, density in [0, 1],
+           the color raster's shape and codes, finite losses and metrics,
+           strict 4-band loads, the test confusions covering the test
+           scene's interiors exactly, each kernel's launches equal to the
+           count derived from the models and every conv3x3 launch on the
+           wgmma variant; seconds per phase, adversarial epochs/s over the
+           warm epochs 2-3, tile Mpx/s, peak device memory
+  rsss_parity  one adversarial step on 2 tiles and then one train-mode test
+           evaluation batch, f32, from the same seeded weights on the card
+           and on the CPU: losses (l1_loss and r_loss included, rtol 1e-4),
+           S and D gradient norms (rtol 1e-3), S and D BN running stats after
+           both calls (atol 1e-4), the BN kernels against the plain sums on
+           the calls' own BN inputs, and the step's 5 MS-SSIM levels at C = 4,
+           kernel against plain version (atol 2e-5)
 
 Then one JSON line of kernel records (conv3x3's sums one serving chunk;
 the JSON summary file adds its ms per training step), and as the last line
@@ -129,14 +157,29 @@ TRAIN_CONV_SHAPES = [
     ("S inc.conv1", "wsss_adversarial", 2, 30, 200, 200, 3, 64),
     ("S inc.conv2", "wsss_adversarial", 2, 30, 200, 200, 64, 64),
     ("S down1.conv1", "wsss_adversarial", 2, 30, 100, 100, 64, 128),
+    ("S inc.conv1", "rsss_adversarial", 1, 24, 200, 200, 4, 64),
+    ("S inc.conv2", "rsss_adversarial", 1, 24, 200, 200, 64, 64),
+    ("S down1.conv1", "rsss_adversarial", 1, 24, 100, 100, 64, 128),
+    ("G trunk", "rsss_adversarial", 11, 12, 200, 200, 64, 64),
+    ("G trunk", "rsss_g_pretrain", 11, 20, 200, 200, 64, 64),
 ]
-# (pool, N, H, W, C) of one S-init or joint step: the Segmentor's Down pools
-# on the stacked pair (2 x batch 10), then the per-band VGG's on the stacked
-# [target; generated] planes (2 x 3 bands x batch 10)
-POOL_SHAPES = [(f"{net}.pool{i + 1}", n, hw, hw, c)
-               for net, n in (("S", 20), ("VGG", 60))
-               for i, (hw, c) in enumerate(((220, 64), (110, 128), (55, 256), (27, 512)))]
-SSIM_SHAPES = [(10, hw, hw, 3) for hw in (220, 110, 55, 28, 14)]  # MS-SSIM levels
+# (pool, step, N, H, W, C) of the max-pool backwards of one step: in a USSS
+# S-init or joint step the Segmentor's Down pools on the stacked pair (2 x
+# batch 10), then the per-band VGG's on the stacked [target; generated]
+# planes (2 x 3 bands x batch 10); in an RSSS adversarial step S's at 2 x 12
+# and the 4-band VGG's at 2 x 4 x 12; in an RSSS G-pretrain step the VGG's
+# on the generated planes only (4 x 20)
+POOL_SHAPES = [(f"{net}.pool{i + 1}", step, n, side >> i, side >> i, c)
+               for net, step, n, side in (("S", "usss_joint", 20, 220),
+                                          ("VGG", "usss_joint", 60, 220),
+                                          ("S", "rsss_adversarial", 24, 200),
+                                          ("VGG", "rsss_adversarial", 96, 200),
+                                          ("VGG", "rsss_g_pretrain", 80, 200))
+               for i, c in enumerate((64, 128, 256, 512))]
+# (step, N, H, W, C) of the MS-SSIM levels: a USSS step's (N = 10, 3 bands)
+# and an RSSS adversarial step's (N = 12, 4 bands)
+SSIM_SHAPES = ([("usss_joint", 10, hw, hw, 3) for hw in (220, 110, 55, 28, 14)]
+               + [("rsss_adversarial", 12, hw, hw, 4) for hw in (200, 100, 50, 25, 13)])
 SCENE = 2048
 TRAIN_SCENE = 1024
 BATCH = 10
@@ -148,6 +191,13 @@ WSSS_SIZE = 200
 WSSS_BATCH = 15
 WSSS_UNC_BATCH = 50
 WSSS_EPOCHS = (1, 3)  # G pretrain, adversarial
+RSSS_SCENE = 1024  # px, the side of each synthetic OSCD scene
+RSSS_BANDS = 4
+RSSS_SCENES = (("alpha", "beta"), ("gamma",))  # train, test
+RSSS_PATCH = 200
+RSSS_INIT_BATCH = 20
+RSSS_BATCH = 12
+RSSS_EPOCHS = (1, 3)  # G pretrain, adversarial
 SOURCES = ["conv3x3", "pool_bwd", "fused_ssim", "channel_sums", "phase_pool"]
 
 
@@ -356,10 +406,11 @@ def conv_rows(torch, F):
 def conv_per_step(rows):
     """conv3x3 device ms, bound ms and F.conv2d ms per training step (bf16):
     a USSS joint step runs G's trunk and S's three serving-shape convs; a
-    WSSS step its own rows."""
+    WSSS or RSSS step its own rows."""
     out = {}
     for step, extra in (("usss_joint", "serve_chunk"), ("wsss_adversarial", None),
-                        ("wsss_g_pretrain", None)):
+                        ("wsss_g_pretrain", None), ("rsss_adversarial", None),
+                        ("rsss_g_pretrain", None)):
         sel = [r for r in rows if r["dtype"] == "bfloat16" and r["step"] in (step, extra)]
         out[step] = {key: sum(r["per_step"] * r[key] for r in sel)
                      for key in ("ms", "bound_ms", "library_ms", "plain_ms")}
@@ -368,7 +419,7 @@ def conv_per_step(rows):
 
 
 def pool_rows(torch, F):
-    """pool_bwd at the 8 pools of a step, bf16 and f32: bit-equal to its
+    """pool_bwd at the pools of each step, bf16 and f32: bit-equal to its
     plain version and to torch's own max-pool backward."""
     from fcdgan_tpu_torch.ops.pool_bwd import pool_bwd, pool_bwd_plain
 
@@ -376,7 +427,7 @@ def pool_rows(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(1)
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
-        for layer, n, h, w, c in POOL_SHAPES:
+        for layer, step, n, h, w, c in POOL_SHAPES:
             # post-ReLU activations, as the pools see them: many tied zeros
             x = torch.relu(torch.randn((n, h, w, c), generator=gen, device="cuda")).to(dt)
             dy = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").to(dt)
@@ -397,7 +448,7 @@ def pool_rows(torch, F):
             # window and channel
             nbytes = (2 * x.numel() + dy.numel()) * dt.itemsize
             bound_ms, bound_by = roofline(nbytes, 7 * dy.numel(), "float32")
-            row = {"name": "pool_bwd", "layer": layer, "dtype": dtype_name,
+            row = {"name": "pool_bwd", "layer": layer, "step": step, "dtype": dtype_name,
                    "shape": [n, h, w, c], "max_abs_err": err, "tol": 0.0,
                    "bit_equal_plain_and_library": ok,
                    "ms": cuda_ms(torch, lambda: pool_bwd(x, dy)),
@@ -407,7 +458,7 @@ def pool_rows(torch, F):
                    "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
             phase("kernels", row)
             if not (ok and err == 0):
-                raise AssertionError(f"pool_bwd {layer} {dtype_name}: not bit-equal "
+                raise AssertionError(f"pool_bwd {layer} {step} {dtype_name}: not bit-equal "
                                      f"(max abs err {err})")
             rows.append(row)
             del x, dy, got, want, lib, idx
@@ -416,13 +467,13 @@ def pool_rows(torch, F):
 
 
 def ssim_rows(torch):
-    """fused_ssim at the 5 MS-SSIM levels of a step, f32, atol 2e-5."""
+    """fused_ssim at the 5 MS-SSIM levels of each step, f32, atol 2e-5."""
     from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain, tile_plan
 
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(2)
     k = 11
-    for n, h, w, c in SSIM_SHAPES:
+    for step, n, h, w, c in SSIM_SHAPES:
         x = torch.rand((n, h, w, c), generator=gen, device="cuda")
         y = (x + 0.08 * torch.randn((n, h, w, c), generator=gen, device="cuda")).clamp(0, 1)
         got = ssim_level(x, y, 1.0)
@@ -439,7 +490,7 @@ def ssim_rows(torch):
         nbytes = 2 * x.numel() * 4 + 2 * n * c * 4
         flops = n * c * (3 * h * w + 10 * k * vh * w + (10 * k + 20) * vh * vw)
         bound_ms, bound_by = roofline(nbytes, flops, "float32")
-        row = {"name": "fused_ssim", "layer": f"level {h}x{w}", "dtype": "float32",
+        row = {"name": "fused_ssim", "layer": f"level {h}x{w}", "step": step, "dtype": "float32",
                "shape": [n, h, w, c], "max_abs_err": err, "tol": 2e-5,
                "tile": [plan.th, plan.tw], "tiles": n * plan.tiles_y * plan.tiles_x,
                "device_launches_per_call": launched[0],
@@ -452,7 +503,7 @@ def ssim_rows(torch):
                "bound_ms": bound_ms, "bound_by": bound_by}
         phase("kernels", row)
         if not (err <= 2e-5 and one_launch_each(launched) and same):
-            raise AssertionError(f"fused_ssim {h}x{w}: max abs err {err} (tol 2e-5), "
+            raise AssertionError(f"fused_ssim {step} {h}x{w}x{c}: max abs err {err} (tol 2e-5), "
                                  f"device launches {launched}, repeatable {same}")
         rows.append(row)
     return rows
@@ -479,13 +530,17 @@ def record_calls(module, name, clone=False):
 
 
 def step_shapes(torch):
-    """The NHWC shapes of the BN inputs and max-pool inputs of one USSS joint
-    step at batch 10 (G on 10 tiles, S on the stacked pair, the per-band VGG
-    on the stacked [target; generated] planes) and of the Discriminator's BN
-    inputs in a WSSS adversarial step (15 pairs stacked, 200 px, three D
-    forwards), each with its count per step: recorded from train-mode
-    forwards of the models on the card (their kernel launches are set-up and
-    the main paths' counts start from 0 later)."""
+    """The NHWC shapes of the BN inputs and max-pool inputs of one step of
+    each training path, each with its count per step: a USSS joint step at
+    batch 10 (G on 10 tiles, S on the stacked pair, the per-band VGG on the
+    stacked [target; generated] planes), the Discriminator's BN inputs in a
+    WSSS adversarial step (15 pairs stacked, 200 px, three D forwards), an
+    RSSS G-pretrain step (G on 20 4-band tiles, the per-band VGG on the
+    target and the generated planes, two passes) and an RSSS adversarial
+    step (S and D on 12 stacked 4-band pairs, D three times, the VGG on the
+    stacked planes). Recorded from train-mode forwards of the models on the
+    card (their kernel launches are set-up and the main paths' counts start
+    from 0 later)."""
     from fcdgan_tpu_torch.models import layers
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
@@ -494,30 +549,56 @@ def step_shapes(torch):
                                              vgg16_features, vgg16_random_params)
     from fcdgan_tpu_torch.ops import pool_bwd as pool_mod
 
+    bf16 = torch.bfloat16
+    vgg = VGG16Weights(vgg16_random_params(0), "cuda")
+
     def nhwc(t):
         return (t.shape[0], t.shape[2], t.shape[3], t.shape[1])
 
-    bf16 = torch.bfloat16
-    usss_bn, pools, d_bn = collections.Counter(), collections.Counter(), collections.Counter()
-    with torch.no_grad():
-        tile = torch.zeros((BATCH, 3, PATCH, PATCH), device="cuda")
+    def recorded(*calls, times=1):
+        """{shape: count} of the BN inputs and of the max-pool inputs that
+        ``calls`` (thunks) make, each count times ``times``."""
         with record_calls(layers, "bn_train") as bns, \
                 record_calls(pool_mod, "phase_pool") as pls:
-            Generator(3, compute_dtype=bf16).cuda().train()(tile)
-            Segmentor(3, compute_dtype=bf16).cuda().train()(tile, tile)
-            planes = torch.zeros((2 * 3 * BATCH, PATCH, PATCH, 1), device="cuda")
-            vgg16_features(planes, VGG16Weights(vgg16_random_params(0), "cuda"),
-                           select_feature_layers(1), bf16)
-        usss_bn.update(nhwc(args[0]) for args, _ in bns)
-        pools.update(tuple(args[0].shape) for args, _ in pls)
-        sl = torch.zeros((WSSS_BATCH, 3, WSSS_SIZE, WSSS_SIZE), device="cuda")
-        with record_calls(layers, "bn_train") as bns:
-            Discriminator(3, compute_dtype=bf16).cuda().train()(sl, sl)
-        d_bn.update({nhwc(args[0]): 3 for args, _ in bns})  # 3 D forwards per step
+            for call in calls:
+                call()
+        bn = collections.Counter(nhwc(args[0]) for args, _ in bns)
+        pools = collections.Counter(tuple(args[0].shape) for args, _ in pls)
+        return ({k: v * times for k, v in bn.items()}, {k: v * times for k, v in pools.items()})
+
+    def tiles(n, c, side):
+        return torch.zeros((n, c, side, side), device="cuda")
+
+    def planes(n, side):
+        return lambda: vgg16_features(torch.zeros((n, side, side, 1), device="cuda"), vgg,
+                                      select_feature_layers(1), bf16)
+
+    def net(cls, nband):
+        return cls(nband, compute_dtype=bf16).cuda().train()
+
+    steps = {}
+    with torch.no_grad():
+        u, r, b = tiles(BATCH, 3, PATCH), tiles(RSSS_BATCH, RSSS_BANDS, RSSS_PATCH), \
+            tiles(RSSS_INIT_BATCH, RSSS_BANDS, RSSS_PATCH)
+        sl = tiles(WSSS_BATCH, 3, WSSS_SIZE)
+        g3, s3, d3 = net(Generator, 3), net(Segmentor, 3), net(Discriminator, 3)
+        g4, s4, d4 = net(Generator, 4), net(Segmentor, 4), net(Discriminator, 4)
+        steps["usss_joint"] = recorded(lambda: g3(u), lambda: s3(u, u),
+                                       planes(2 * 3 * BATCH, PATCH))
+        steps["wsss_adversarial"] = recorded(lambda: d3(sl, sl), times=3)  # 3 D forwards
+        steps["rsss_g_pretrain"] = (recorded(lambda: g4(b))[0],  # the VGG: target, generated
+                                    recorded(planes(RSSS_BANDS * RSSS_INIT_BATCH, RSSS_PATCH),
+                                             times=2)[1])
+        s_bn, s_pools = recorded(lambda: s4(r, r), planes(2 * RSSS_BANDS * RSSS_BATCH,
+                                                          RSSS_PATCH))
+        d_bn, _ = recorded(lambda: d4(r, r), times=3)
+        steps["rsss_adversarial"] = (dict(collections.Counter(s_bn) + collections.Counter(d_bn)),
+                                     s_pools)
+        del g3, s3, d3, g4, s4, d4, vgg
     torch.cuda.empty_cache()
-    bn = [("usss_joint", s, k) for s, k in usss_bn.items()]
-    bn += [("wsss_adversarial", s, k) for s, k in d_bn.items()]
-    return bn, [("usss_joint", s, k) for s, k in pools.items()]
+    bn = [(step, shape, k) for step, (bns, _) in steps.items() for shape, k in bns.items()]
+    pools = [(step, shape, k) for step, (_, pls) in steps.items() for shape, k in pls.items()]
+    return bn, pools
 
 
 def bn_rows(torch, shapes):
@@ -636,16 +717,16 @@ def _gated(torch, module, hw):
                and m.stride == (1, 1) and gate(hw, hw, m.in_channels, m.out_channels))
 
 
-def _model_counts(torch, side):
-    """Per forward at ``side`` px: gated 3x3 convs of G and S, BNs of G, S
-    and D, S's Down pools, the VGG pools before the deepest tap, and the
-    MS-SSIM levels as large as the window."""
+def _model_counts(torch, side, nband=3):
+    """Per forward at ``side`` px of the ``nband``-band models: gated 3x3
+    convs of G and S, BNs of G, S and D, S's Down pools, the VGG pools before
+    the deepest tap, and the MS-SSIM levels as large as the window."""
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.models.vgg import _CFG, select_feature_layers
 
-    net_g, net_s, net_d = Generator(3), Segmentor(3), Discriminator(3)
+    net_g, net_s, net_d = Generator(nband), Segmentor(nband), Discriminator(nband)
     blocks = [(net_s.inc, 0), (net_s.down1, 1), (net_s.down2, 2), (net_s.down3, 3),
               (net_s.down4, 4), (net_s.up1, 3), (net_s.up2, 2), (net_s.up3, 1),
               (net_s.up4, 0)]
@@ -727,6 +808,33 @@ def derived_wsss_launches(torch):
                          "inference_chunk": sb},
         "channel_sums_pair": {"g_pretrain": gb, "adversarial": 2 * sb + 3 * db},
         "phase_pool": {"g_pretrain": 2 * vp, "adversarial": 2 * sp + vp,
+                       "inference_chunk": sp}}
+    return _launch_totals(per_step, n_steps), per_step
+
+
+def derived_rsss_launches(torch, n_train, n_test):
+    """Each kernel's launches in the rsss phase, from the 4-band models'
+    structure: a G-pretrain step as in USSS (per-band perception); an
+    adversarial step runs S forward once and backward, D forward three
+    times and backward through all three (two in the D update, one in the S
+    loss), G in eval mode and the VGG (one stacked pass) forward and
+    backward; a test-evaluation batch S in train mode without a graph; an
+    inference chunk S in eval mode."""
+    k = _model_counts(torch, RSSS_PATCH, RSSS_BANDS)
+    test_batches = -(-n_test // RSSS_BATCH)
+    n_steps = {"g_pretrain": RSSS_EPOCHS[0] * -(-n_train // RSSS_INIT_BATCH),
+               "adversarial": RSSS_EPOCHS[1] * -(-n_train // RSSS_BATCH),
+               "test_eval": RSSS_EPOCHS[1] * test_batches, "inference_chunk": test_batches}
+    gb, sb, db = k["g_bns"], k["s_bns"], k["d_bns"]
+    sp, vp = k["s_pools"], k["vgg_pools"]
+    per_step = {
+        "conv3x3": {"g_pretrain": k["g_convs"], "adversarial": k["s_convs"] + k["g_convs"],
+                    "test_eval": k["s_convs"], "inference_chunk": k["s_convs"]},
+        "pool_bwd": {"g_pretrain": vp, "adversarial": sp + vp},
+        "fused_ssim": {"g_pretrain": k["levels"], "adversarial": k["levels"]},
+        "channel_sums": {"g_pretrain": gb, "adversarial": sb + 3 * db, "test_eval": sb},
+        "channel_sums_pair": {"g_pretrain": gb, "adversarial": sb + 3 * db},
+        "phase_pool": {"g_pretrain": 2 * vp, "adversarial": sp + vp, "test_eval": sp,
                        "inference_chunk": sp}}
     return _launch_totals(per_step, n_steps), per_step
 
@@ -1170,6 +1278,229 @@ def wsss_parity_phase(torch, root):
                              f"{n_calls} calls")
 
 
+def rsss_phase(torch, work):
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.data.synthetic import make_oscd_dataset
+    from fcdgan_tpu_torch.demos import demo_rsss
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+
+    root = os.path.join(work, "oscd")
+    # change rectangles across the scene; the regions grow 40 px around them
+    make_oscd_dataset(root, *RSSS_SCENES, xsize=RSSS_SCENE, ysize=RSSS_SCENE, nband=RSSS_BANDS,
+                      region_expand=40, seed=3, dtype=np.uint16,
+                      rects=((150, 180, 120, 90), (600, 420, 150, 210), (820, 760, 110, 140),
+                             (300, 700, 90, 160)))
+    argv = ["--img-dir", root, "--out-g-model-dir", os.path.join(root, "GModel"),
+            "--compute-dtype", "bfloat16", "--init-batch-size", str(RSSS_INIT_BATCH),
+            "--batch-size", str(RSSS_BATCH), "--patch-size", f"{RSSS_PATCH},{RSSS_PATCH}",
+            "--init-num-epochs-g", str(RSSS_EPOCHS[0]), "--num-epochs", str(RSSS_EPOCHS[1]),
+            "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    out = demo_rsss.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    variants = dict(counters["conv3x3"].launches_by_variant)
+    n_train, n_test = out["tiles"], out["test_tiles"]
+    want, per_step = derived_rsss_launches(torch, n_train, n_test)
+    rasters_ok = True
+    for scene in RSSS_SCENES[1]:
+        d = os.path.join(root, scene, "ImagePair")
+        density = open_raster(os.path.join(d, out["density_name"])).read_block()
+        color = open_raster(os.path.join(d, out["color_name"])).read_block()
+        rasters_ok &= bool(density.shape == color.shape == (RSSS_SCENE, RSSS_SCENE, 1)
+                           and np.isfinite(density).all()
+                           and density.min() >= 0 and density.max() <= 1
+                           and set(np.unique(color).tolist()) <= {0.0, 1.0, 2.0, 3.0})
+    for key, cls in (("smodel_path", Segmentor), ("gmodel_path", Generator),
+                     ("dmodel_path", Discriminator)):  # strict loads at 4 bands
+        cls(RSSS_BANDS).load_state_dict(torch.load(out[key], weights_only=True), strict=True)
+    ev, test_ev = out["evaluator"], out["test_evaluator"]
+    metrics = {"oa": float(ev.Pixel_Accuracy()), "f1": float(ev.Pixel_F1_score()),
+               "kappa": float(ev.Pixel_Kappa()), "test_oa": float(test_ev.Pixel_Accuracy()),
+               "test_f1": float(test_ev.Pixel_F1_score()),
+               "test_kappa": float(test_ev.Pixel_Kappa())}
+    # the losses and the train and test accuracies of every epoch; F1 is
+    # reported, not checked: it is NaN while no pixel is detected as changed
+    values = [v for ph in out["epoch_metrics"].values() for m in ph
+              for key, v in m.items() if key != "f1"]
+    sec = out["epoch_seconds"]
+    warm = sec["adv"][1:]
+    test_px = len(RSSS_SCENES[1]) * RSSS_SCENE ** 2
+    checks = {
+        "tiles": (n_train, n_test) == (72, 36),
+        "rasters": rasters_ok,
+        "artifacts": all(os.path.isfile(out[k]) for k in (
+            "para_path", "smodel_path", "gmodel_path", "dmodel_path")),
+        "epochs": [len(sec["g"]), len(sec["adv"]), len(sec["test"])] == [
+            RSSS_EPOCHS[0], RSSS_EPOCHS[1], RSSS_EPOCHS[1]],
+        "losses_and_epoch_metrics_finite": bool(values) and all(math.isfinite(v)
+                                                                for v in values),
+        "metrics_finite": all(math.isfinite(v) for key, v in metrics.items()
+                              if not key.endswith("f1")),
+        "confusions_cover_test_interiors": bool(
+            ev.confusion_matrix.sum() == test_px == test_ev.confusion_matrix.sum()),
+        "launches": launches == want,
+        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
+    }
+    phase("rsss", {
+        "seconds": seconds, "tiles": n_train, "test_tiles": n_test, "tile_px": RSSS_PATCH,
+        "phase_seconds": {"g_pretrain": sum(sec["g"]), "adversarial": sum(sec["adv"]),
+                          "test_eval": sum(sec["test"]), "inference": sec["infer"]},
+        "g_epoch_seconds": sec["g"], "adv_epoch_seconds": sec["adv"],
+        "test_eval_seconds": sec["test"],
+        "adv_epochs_per_s_warm": len(warm) / sum(warm),
+        "tile_mpx_per_s_warm": n_train * RSSS_PATCH ** 2 * len(warm) / sum(warm) / 1e6,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
+        "per_step": per_step,
+        "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"rsss checks failed: {checks}")
+    return launches, root
+
+
+def _bn_stats(torch, *nets):
+    """The BN running means and variances of ``nets``, flat, on the CPU."""
+    return torch.cat([b.detach().cpu().reshape(-1) for net in nets
+                      for n, b in net.named_buffers() if n.endswith(("mean", "var"))])
+
+
+def rsss_parity_phase(torch, root):
+    """One adversarial step on 2 tiles and then one train-mode test
+    evaluation batch of 2 tiles, f32, from the same seeded weights, on the
+    card (the kernels) and on the CPU (the plain versions): losses, S and D
+    gradient norms, S and D BN running stats after both calls; and on the
+    card each BN statistic of the two calls (the kernels' outputs, recorded
+    in ``ops.fused_bn``) against the plain sums of the same inputs, and the
+    step's 5 MS-SSIM levels at C = 4, kernel against plain version.
+
+    The test evaluation runs S from the card's updated weights on both
+    devices: RMSprop's first step moves every weight by about 10 x lr x
+    sign(gradient), so an element within float noise of zero leaves the two
+    devices' weights 2e-3 apart at the S learning rate of epoch 0 (1e-4),
+    and a forward of the two updates could not be held at 1e-4."""
+    from fcdgan_tpu_torch.data.datasets import OSCDDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceOSCDCache
+    from fcdgan_tpu_torch.demos.demo_rsss import _scene_scalers
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.ops import fused_bn
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums_pair_plain, channel_sums_plain
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level_plain
+    from fcdgan_tpu_torch.train import schedules
+    from fcdgan_tpu_torch.train.optim import adam, rmsprop
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, RSSSSteps
+
+    def scene_list(txt):  # the statsMS caches the rsss phase wrote
+        return OSCDDataset(root, txt, scaler=_scene_scalers(root, txt, (RSSS_PATCH,) * 2,
+                                                            "statsMS"),
+                           patch_size=(RSSS_PATCH,) * 2, overlap_padding=(PAD, PAD))
+
+    train, test = scene_list("train.txt"), scene_list("test.txt")
+    # two train tiles that hold a region, so that both region losses are live
+    has_region = (i for i in range(len(train)) if train[i][4].any())
+    items = {"train": [next(has_region), next(has_region)], "test": [0, 1]}
+    k = _model_counts(torch, RSSS_PATCH, RSSS_BANDS)
+    torch.manual_seed(0)
+    nets0 = (Generator(RSSS_BANDS), Segmentor(RSSS_BANDS), Discriminator(RSSS_BANDS))
+    vggp = vgg16_random_params(0)
+    res, s_after = {}, None
+    for dev in ("cuda", "cpu"):
+        net_g, net_s, net_d = (type(n)(RSSS_BANDS) for n in nets0)
+        for a, b in zip((net_g, net_s, net_d), nets0):
+            a.load_state_dict(b.state_dict())
+            a.to(dev)
+        steps = RSSSSteps(net_g, net_s, net_d, adam(net_g.parameters()),
+                          rmsprop(net_s.parameters()), rmsprop(net_d.parameters()),
+                          VGG16Weights(vggp, dev), PerceptionConfig((29,), True),
+                          0.1, 0.0, 0.5, 0.02, 1.0, 2.0, train.interior_sizes(), (PAD, PAD),
+                          test_interior_sizes=test.interior_sizes())
+        db, tb = ({"item": items[n], "weight": [1.0, 1.0]} for n in ("train", "test"))
+        db = DeviceOSCDCache(train, dev).complete(db)
+        tb = DeviceOSCDCache(test, dev).complete(tb)
+        with record_calls(fused_bn, "channel_sums", clone=True) as fwd, \
+                record_calls(fused_bn, "channel_sums_pair", clone=True) as bwd, \
+                record_ssim_levels() as levels:
+            m = steps.adversarial(db["x"], db["y"], db["ref"], db["region"], db["item"],
+                                  db["weight"], schedules.S_ADV_RSSS(0), schedules.D_ADV_RSSS(0))
+            norms = {name: torch.sqrt(sum(p.grad.double().square().sum()
+                                          for p in net.parameters()
+                                          if p.grad is not None)).item()
+                     for name, net in (("S", net_s), ("D", net_d))}
+            step_stats = (_bn_stats(torch, net_s), _bn_stats(torch, net_d))
+            if s_after is None:  # the card's updated S, for both test evaluations
+                s_after = {name: p.detach().cpu().clone() for name, p in net_s.named_parameters()}
+            with torch.no_grad():
+                for name, p in net_s.named_parameters():
+                    p.copy_(s_after[name])
+            cm, _ = steps.eval_confusion_train(tb["x"], tb["y"], tb["ref"], tb["item"],
+                                               tb["weight"])
+        stats = (*step_stats, _bn_stats(torch, net_s), _bn_stats(torch, net_d))
+        if dev == "cuda":  # the kernels on the calls' own inputs
+            kernel_ratio = 0.0
+            for (x,), got in fwd:
+                xf = x.float().reshape(-1, x.shape[-1])
+                for g, w, sc in zip(got, channel_sums_plain(x, True),
+                                    (xf.abs().sum(0), xf.square().sum(0))):
+                    kernel_ratio = max(kernel_ratio,
+                                       ((g - w).abs() / (1e-5 * sc + 1e-30)).max().item())
+            for (a, b), got in bwd:
+                af, bf = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+                for g, w, sc in zip(got, channel_sums_pair_plain(a, b),
+                                    (af.abs().sum(0), (af * bf).abs().sum(0))):
+                    kernel_ratio = max(kernel_ratio,
+                                       ((g - w).abs() / (1e-5 * sc + 1e-30)).max().item())
+            n_calls = (len(fwd), len(bwd))
+            ssim_err = max((a - b).abs().max().item()
+                           for x, y, (rng, win, sigma, kk), got in levels
+                           for a, b in zip(got, ssim_level_plain(x, y, rng, win, sigma, *kk)))
+            ssim_shapes = [list(x.shape) for x, *_ in levels]
+        metrics = {key: float(v) for key, v in m.items() if key != "confusion"}
+        res[dev] = (metrics, norms, stats, cm.cpu())
+        del steps, db, tb, fwd, bwd, levels
+    (mg, ng, sg, cg), (mc, nc, sc, cc) = res["cuda"], res["cpu"]
+    loss_rel = max(abs(mg[key] - mc[key]) / max(abs(mc[key]), 1e-12) for key in mc)
+    norm_rel = max(abs(ng[key] - nc[key]) / nc[key] for key in nc)
+    stats_err = max((a - b).abs().max().item() for a, b in zip(sg, sc))
+    want_calls = (2 * k["s_bns"] + 3 * k["d_bns"], k["s_bns"] + 3 * k["d_bns"])
+    ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and stats_err <= 1e-4
+          and kernel_ratio <= 1.0 and n_calls == want_calls and ssim_err <= 2e-5
+          and len(ssim_shapes) == 5 and all(sh[-1] == RSSS_BANDS for sh in ssim_shapes))
+    phase("rsss_parity", {"tiles": items, "losses_cuda": mg, "losses_cpu": mc,
+                          "grad_norms_cuda": ng, "grad_norms_cpu": nc,
+                          "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+                          "bn_stats_max_abs": stats_err,
+                          "bn_stats_max_abs_by_call": {
+                              f"{net} after the {call}": (a - b).abs().max().item()
+                              for (call, net), a, b in zip(
+                                  [(c, n) for c in ("step", "test evaluation") for n in "SD"],
+                                  sg, sc)},
+                          "bn_kernel_calls": n_calls,
+                          "bn_kernel_calls_derived": want_calls,
+                          "bn_kernel_err_over_tol": kernel_ratio,
+                          "ssim_level_shapes": ssim_shapes,
+                          "ssim_kernel_vs_plain_max_abs": ssim_err,
+                          "test_confusion_cuda": cg.tolist(), "test_confusion_cpu": cc.tolist(),
+                          "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3,
+                                   "bn_stats_abs": 1e-4,
+                                   "bn_kernel": "1e-5 * sum|x| per channel",
+                                   "ssim_kernel_abs": 2e-5}, "ok": ok})
+    if not ok:
+        raise AssertionError(f"rsss parity: losses {loss_rel}, grad norms {norm_rel}, "
+                             f"BN stats {stats_err}, BN kernels {kernel_ratio} x tol over "
+                             f"{n_calls} calls (derived {want_calls}), SSIM {ssim_err} over "
+                             f"{ssim_shapes}")
+
+
 def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
     main path's working type in ``step``, each row times its count per step
@@ -1221,19 +1552,25 @@ def main():
     work = os.path.join(ROOT, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    scene = make_usss_scene(work, SCENE, SCENE, 3, seed=0, dtype="uint16",
-                            rects=((300, 400, 250, 180), (1200, 900, 300, 420),
-                                   (1700, 1600, 200, 260)))
-    smodel, ds, gpu_cache = make_model(torch, work, scene)
-    serve_launches = serve_phase(torch, work, smodel)
-    parity_phase(torch, smodel, ds, gpu_cache)
-    del gpu_cache
-    torch.cuda.empty_cache()
-    launches, tdir = train_phase(torch, work)
-    train_parity_phase(torch, tdir)
-    shutil.rmtree(tdir)
-    wsss_launches, wdir = wsss_phase(torch, work)
-    wsss_parity_phase(torch, wdir)
+    try:  # the scenes and rasters (tens of MB) go whatever happens
+        scene = make_usss_scene(work, SCENE, SCENE, 3, seed=0, dtype="uint16",
+                                rects=((300, 400, 250, 180), (1200, 900, 300, 420),
+                                       (1700, 1600, 200, 260)))
+        smodel, ds, gpu_cache = make_model(torch, work, scene)
+        serve_launches = serve_phase(torch, work, smodel)
+        parity_phase(torch, smodel, ds, gpu_cache)
+        del gpu_cache
+        torch.cuda.empty_cache()
+        launches, tdir = train_phase(torch, work)
+        train_parity_phase(torch, tdir)
+        shutil.rmtree(tdir)
+        wsss_launches, wdir = wsss_phase(torch, work)
+        wsss_parity_phase(torch, wdir)
+        shutil.rmtree(wdir)
+        rsss_launches, rdir = rsss_phase(torch, work)
+        rsss_parity_phase(torch, rdir)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     sites = {"conv3x3": ("conv3x3.cu", "conv3x3.py:103"),
              "pool_bwd": ("pool_bwd.cu", "pool_bwd.py:120"),
@@ -1247,6 +1584,7 @@ def main():
                    rows[name], launches[name],
                    "serve_chunk" if name == "conv3x3" else "usss_joint")
         r["wsss_launches"] = wsss_launches[name]
+        r["rsss_launches"] = rsss_launches[name]
         records.append(r)
     for r in records:
         r["serve_launches"] = serve_launches[r["name"]]
@@ -1256,7 +1594,6 @@ def main():
                "seconds": time.perf_counter() - t_start}
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    shutil.rmtree(work)  # the scenes and rasters: tens of MB
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

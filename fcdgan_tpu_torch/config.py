@@ -1,16 +1,16 @@
 """Driver configs and their command-line parsing.
 
-``USSSConfig`` and ``WSSSConfig`` carry the JAX package's defaults
-(config.py:19-190, the constants of Demo_USSS.py:33-76 and
-Demo_WSSS.py:31-66) and ``device`` (``cuda`` unless the caller asks for
-``cpu``). The JAX fields ``platform``, ``learning_rate`` (which no phase
+``USSSConfig``, ``WSSSConfig`` and ``RSSSConfig`` carry the JAX package's
+defaults (config.py:19-288, the constants of Demo_USSS.py:33-76,
+Demo_WSSS.py:31-66 and Demo_RSSS.py:31-67) and ``device`` (``cuda`` unless
+the caller asks for ``cpu``). The JAX fields ``platform``, ``learning_rate`` (which no phase
 reads: the schedules set every rate), ``device_normalize`` and
 ``prefetch_depth`` have no counterpart: the resident caches normalize on
 the device and their batches are device gathers, with no host prefetch.
 Neither have ``eraser_regions`` and ``erase_thresh``, which only the
 unported ``random_eraser`` reads, so their flags are rejected.
-``unported`` and ``unported_wsss`` name the options whose values the port
-does not run yet; the drivers raise ``NotImplementedError`` for them.
+``unported``, ``unported_wsss`` and ``unported_rsss`` name the options
+whose values the port does not run yet; the drivers raise ``NotImplementedError`` for them.
 ``parse_cli`` is a copy of the JAX package's (:290-345): every dataclass
 field becomes ``--field-name``, parsed by its resolved annotation (bools
 accept 1/true/yes, tuples are comma-separated and cast per element).
@@ -149,6 +149,77 @@ class WSSSConfig:
     progress: bool = True
 
 
+@dataclasses.dataclass
+class RSSSConfig:
+    """Regional supervised mode (defaults: Demo_RSSS.py:31-67)."""
+
+    img_dir: str = ""
+    out_g_model_dir: str = ""
+    txt_name: str = "train.txt"
+    test_txt_name: str = "test.txt"
+    out_name_density: str = "density"
+    out_name_binary: str = "color"
+    ext: str = ""
+
+    init_num_epochs_g: int = 50
+    num_epochs: int = 100
+    init_batch_size: int = 20
+    batch_size: int = 12
+    lr_scale: float = 1.0        # multiplies every phase schedule
+    lr_epoch_scale: float = 1.0  # schedules read epoch / lr_epoch_scale
+
+    patch_size: Tuple[int, int] = (200, 200)
+    overlap_padding: Tuple[int, int] = (10, 10)
+    gt_map: Tuple[int, int] = (1, 2)
+    pre_map: Tuple[int, int] = (0, 1)
+    prob_thresh: float = 0.5
+    tips: str = ""
+
+    perception_weight: float = 0.1
+    ssim_weight: float = 0.0
+    perception_per_band: bool = True
+    perception_layer: int = 1
+
+    l1_weight: float = 0.02
+    g_weight: float = 0.5
+    d_weight: float = 1.0
+    r_weight: float = 2.0
+
+    write_color: bool = True
+    model_g_reuse: bool = True
+    discriminator_continuous: bool = True
+    stats_name: str = "statsMS"
+    # 'train' (reference parity: the per-epoch test eval runs train-mode BN,
+    # Demo_RSSS.py:415, and the running statistics absorb the test batches)
+    # or 'eval' (running-statistics evaluation)
+    test_eval_bn: str = "train"
+    random_eraser: bool = False     # True is not ported
+
+    msssim_weights: Optional[Tuple[float, ...]] = None
+    device: str = "cuda"            # 'cpu' only on request
+    compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
+    siamese_stats: str = "joint"    # 'split' is not ported
+    density_dtype: str = "float32"  # quantized downloads are not ported
+    tile_cache: str = "auto"        # 'auto'/'on': device-resident tile stacks
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch
+    remat: bool = False
+    ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
+    debug_nans: bool = False
+    profile_dir: Optional[str] = None
+    seed: int = 0
+    checkpoint_every: int = 0
+    resume: bool = False
+    n_devices: Optional[int] = None
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    vgg_npz: Optional[str] = None
+    require_vgg: bool = False
+    log_tensorboard: bool = True
+    save_checkpoints: bool = True
+    progress: bool = True
+
+
 def _unported_common(cfg) -> List[str]:
     out = []
     if cfg.siamese_stats != "joint":
@@ -186,6 +257,16 @@ def unported_wsss(cfg: WSSSConfig) -> List[str]:
         out.append(f"--slice-cache {cfg.slice_cache} (host slice loaders)")
     if cfg.random_assign:
         out.append("--random-assign")
+    if cfg.random_eraser:
+        out.append("--random-eraser")
+    return out
+
+
+def unported_rsss(cfg: RSSSConfig) -> List[str]:
+    """The options of an RSSS ``cfg`` whose values the port does not run yet."""
+    out = _unported_common(cfg)
+    if cfg.tile_cache not in ("auto", "on"):
+        out.append(f"--tile-cache {cfg.tile_cache} (host tile loaders)")
     if cfg.random_eraser:
         out.append("--random-eraser")
     return out

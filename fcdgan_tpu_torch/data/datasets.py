@@ -5,10 +5,16 @@ the port's drivers use:
 
   * ``ScenePairDataset`` (parity: GDALDataset, reference
     data_utils.py:28-236): numpy (h, w, nband) float32 tiles for the
-    statistics pass, and the whole-scene density write of the fused serving
-    path. Normalisation (``enhance``) applies to the raw read window *before*
-    zero padding, exactly like the reference (data_utils.py:110-120), so the
-    canvas padding stays zero.
+    statistics pass, the whole-scene density write of the fused serving
+    path and the per-tile stitched write of RSSS. Normalisation
+    (``enhance``) applies to the raw read window *before* zero padding,
+    exactly like the reference (data_utils.py:110-120), so the canvas
+    padding stays zero.
+  * ``RegionScenePairDataset`` (GDALDataset_RSS, data_utils.py:239-290) and
+    ``OSCDDataset`` (OSCD_Dataset_RSS, data_utils.py:294-446): the RSSS
+    scene lists, each scene with its own normalizer, a coarse region raster
+    beside the reference, and per-(filter, scene) output rasters. The
+    whole-scene write of the ``oscd`` serving mode is not ported.
   * ``WHUDataset`` (parity: WHU_Dataset, data_utils.py:449-563) and
     ``WHUPairDataset`` (WHU_Dataset_WSS, data_utils.py:570-625): the slice
     lists selected through ``label.txt``, the changed slices' references
@@ -21,7 +27,7 @@ from __future__ import annotations
 import math
 import os
 import random
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -87,6 +93,22 @@ class ScenePairDataset:
             ref[write[1]: write[1] + write[3], write[0]: write[0] + write[2], :] = r
         return x, y, item, ref
 
+    def write(self, out_image: np.ndarray, item: int, out_raster) -> None:
+        """Write the interior of tile ``item`` of an (h, w) or (h, w, bands)
+        canvas into ``out_raster`` at its core (parity: GDALwrite,
+        data_utils.py:215-236)."""
+        if out_image.ndim == 2:
+            out_image = out_image[..., None]
+        if out_image.shape[-1] != out_raster.nband:
+            raise ValueError("The band of output image doesn't match the output raster")
+        core, _, _ = self.grid.slices(item)
+        padx, pady = self.overlap_padding
+        interior = out_image[pady: pady + core[3], padx: padx + core[2], :]
+        if interior.shape[-1] == 1:
+            out_raster.write_block(interior[..., 0], core[0], core[1], band=0)
+        else:
+            out_raster.write_block(interior, core[0], core[1])
+
     def write_full(self, density: np.ndarray):
         """Write the whole stitched (ysize, xsize) density raster in one call,
         with the geo metadata copied from image X (data_utils.py:190-198)."""
@@ -103,6 +125,145 @@ class ScenePairDataset:
         if self._out is not None:
             self._out.close()
             self._out = None
+
+
+class RegionScenePairDataset:
+    """A scene pair with a coarse region raster: items (x, y, item, ref,
+    region), the region canvas with values above 125 set to 1 and smaller
+    ones kept (parity: GDALDataset_RSS, data_utils.py:273-282)."""
+
+    def __init__(self, img_path_x, img_path_y, region_path=None, ref_path=None,
+                 enhance: Optional[Callable] = None,
+                 patch_size: Tuple[int, int] = (200, 200),
+                 overlap_padding: Tuple[int, int] = (10, 10)):
+        self.ds = ScenePairDataset(img_path_x, img_path_y, ref_path=ref_path, enhance=enhance,
+                                   patch_size=patch_size, overlap_padding=overlap_padding)
+        self.patch_size = patch_size
+        self.raster_region = None
+        if region_path is not None:
+            self.raster_region = open_raster(region_path)
+            if (self.raster_region.xsize != self.ds.raster_x.xsize
+                    or self.raster_region.ysize != self.ds.raster_x.ysize
+                    or self.raster_region.nband != 1):
+                raise ValueError("Reference sizes don't match image")
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, item: int):
+        x, y, item, ref = self.ds[item]
+        region = np.zeros((self.patch_size[1], self.patch_size[0], 1), np.float32)
+        if self.raster_region is not None:
+            _, read, write = self.ds.grid.slices(item)
+            r = self.raster_region.read_block(*read).astype(np.float32)
+            region[write[1]: write[1] + write[3], write[0]: write[0] + write[2], :] = r
+        region[region > 125] = 1
+        return x, y, item, ref, region
+
+
+class OSCDDataset:
+    """The scenes of an OSCD list as one dataset (parity: OSCD_Dataset_RSS,
+    data_utils.py:294-446).
+
+    The list is a one-line comma-separated txt under ``img_dir``. Each scene
+    directory ``{name}/ImagePair/`` holds two extension-less ENVI images
+    whose names contain the scene name, a ``*-cm.tif`` reference and a
+    ``*-region.tif`` region raster. ``scaler`` gives one normalizer per
+    scene; ``transforms`` one sync transform per scene, of which the port
+    runs none yet (the random eraser, ROADMAP.md queue A). Items are indexed
+    globally by the cumulative scene lengths; ``write`` stitches into
+    per-(filter, scene) rasters created at first use."""
+
+    def __init__(self, img_dir: str, txt_name: str, scaler: Optional[Sequence] = None,
+                 transforms: Optional[Sequence] = None,
+                 patch_size: Tuple[int, int] = (200, 200),
+                 overlap_padding: Tuple[int, int] = (10, 10)):
+        self.img_dir = img_dir
+        self.patch_size = patch_size
+        self.overlap_padding = overlap_padding
+        with open(os.path.join(img_dir, txt_name)) as f:
+            filenames = [n for n in f.readline().strip().split(",") if n]
+        # the length checks come before any scene is opened (datasets.py:245-252)
+        if scaler is not None and len(scaler) != len(filenames):
+            raise ValueError("The list of scaler doesn't match the file list")
+        if transforms is not None and len(transforms) != len(filenames):
+            raise ValueError("The list of transforms doesn't match the file list")
+        if transforms is not None and any(t is not None for t in transforms):
+            raise NotImplementedError("OSCD sync transforms (the random eraser) are not "
+                                      "ported yet; see ROADMAP.md (queue A)")
+        self.dslist: List[RegionScenePairDataset] = []
+        self.numlist: List[int] = []
+        self.namelist: List[str] = []
+        self.pathlist: List[List[str]] = []
+        for idx, name in enumerate(filenames):
+            cur = os.path.join(img_dir, name, "ImagePair")
+            files = os.listdir(cur)
+            imgs = sorted(x for x in files if os.path.splitext(x)[-1] == "" and name in x)
+            if len(imgs) != 2:
+                raise ValueError(f"Error in finding image file {cur}")
+            refs = [x for x in files if x.split("-")[-1] == "cm.tif"]
+            if len(refs) != 1:
+                raise ValueError(f"Error in finding reference file {cur}")
+            regions = [x for x in files if x.split("-")[-1] == "region.tif"]
+            if len(regions) != 1:
+                raise ValueError(f"Error in finding region file {cur}")
+            px, py, pr, pg = (os.path.join(cur, f) for f in (*imgs, refs[0], regions[0]))
+            self.pathlist.append([px, py, pr, pg])
+            ds = RegionScenePairDataset(
+                px, py, region_path=pg, ref_path=pr,
+                enhance=None if scaler is None else scaler[idx],
+                patch_size=patch_size, overlap_padding=overlap_padding)
+            self.dslist.append(ds)
+            self.numlist.append(len(ds))
+            self.namelist.append(name)
+        self.cumlen = np.cumsum(self.numlist).tolist()
+        self._writers = {}  # (filter_name, scene index) -> raster writer
+
+    def __len__(self) -> int:
+        return int(self.cumlen[-1]) if self.cumlen else 0
+
+    def _locate(self, item: int) -> Tuple[int, int]:
+        """Global item -> (scene index, item within the scene)."""
+        if item >= len(self):
+            raise IndexError("item exceeds the len")
+        ds_idx = int(np.searchsorted(np.asarray(self.cumlen), item, side="right"))
+        return ds_idx, (item - self.cumlen[ds_idx - 1] if ds_idx > 0 else item)
+
+    def __getitem__(self, item: int):
+        ds_idx, cur = self._locate(item)
+        x, y, _, ref, region = self.dslist[ds_idx][cur]
+        return x, y, item, ref, region
+
+    def eff_range(self, item: int) -> Tuple[int, int, int, int]:
+        """Interior eval window (y0, y1, x0, x1) of a global item (parity:
+        EffRange, data_utils.py:390-405)."""
+        ds_idx, cur = self._locate(item)
+        return self.dslist[ds_idx].ds.grid.interior(cur)
+
+    def interior_sizes(self) -> np.ndarray:
+        """The scenes' (core_h, core_w) rows, indexed by global item."""
+        return np.concatenate([d.ds.grid.interior_sizes() for d in self.dslist])
+
+    def write(self, out_image: np.ndarray, item: int, filter_name: str) -> None:
+        """Stitch a tile into the float32 raster ``{scene}/ImagePair/{filter_name}``
+        created at first use with image X's geo metadata (parity: GDALwrite,
+        data_utils.py:408-446)."""
+        ds_idx, cur = self._locate(item)
+        if out_image.ndim == 2:
+            out_image = out_image[..., None]
+        key = (filter_name, ds_idx)
+        if key not in self._writers:
+            base = self.dslist[ds_idx].ds
+            xs, ys, _ = base.size()
+            path = os.path.join(self.img_dir, self.namelist[ds_idx], "ImagePair", filter_name)
+            self._writers[key] = create_raster(path, xs, ys, out_image.shape[-1], np.float32,
+                                               like=base.raster_x)
+        self.dslist[ds_idx].ds.write(out_image, cur, self._writers[key])
+
+    def close_outputs(self) -> None:
+        for w in self._writers.values():
+            w.close()
+        self._writers = {}
 
 
 class WHUDataset:

@@ -14,18 +14,29 @@ finished raster is downloaded once.
 
 Chunks are batch-exact: ``ceil(n / batch_size)`` chunks of ``batch_size``
 tiles, the last one wrap-padded with the first tiles again (their interiors
-are re-written with identical values). Scenes past ``fits()`` need the
-rolling-window cache, which is not ported yet.
+are re-written with identical values). A raster is held in its stored type
+when that is an integer of at most 2 bytes (uint8, uint16, int16, ...) and
+in float32 otherwise, and cast to float32 at gather time (``prep``,
+device_cache.py:263-272). ``fits()`` budgets those bytes against
+``FCDGAN_SCENE_CACHE_MAX_MB`` (default 4096, :331-342); scenes past it need
+the rolling-window cache, which is not ported yet.
 
 ``DeviceWHUCache`` is the counterpart of the JAX ``DeviceWHUCache``
 (:1154-1307): the raw changed and unchanged slice stacks and the binarized
 changed references stay on the device in their stored type, and
 ``complete_pair`` / ``complete_unc`` / ``complete_c`` gather and normalize
 the batches of ``IndexPairBatchLoader`` / ``IndexBatchLoader`` there.
+
+``DeviceOSCDCache`` is the counterpart of the JAX ``DeviceOSCDCache``
+(:1310-1455) for the RSSS scene lists: raw fixed-shape tile canvases in the
+scenes' common stored type (the same rule), each item's per-scene mean/std
+rows and write window, normalized and pad-masked on the device by
+``complete``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -33,9 +44,6 @@ import torch
 
 from .normalize import Normalize
 
-# bytes the resident raw scene pair may take on the device;
-# rasters are held as float32 there
-SCENE_CACHE_MAX_BYTES = 4096 * 10**6
 # bytes the resident raw WHU slice stacks may take on the device, in their
 # stored type (the JAX default of FCDGAN_SLICE_CACHE_MAX_MB, :1253)
 SLICE_CACHE_MAX_BYTES = 4096 * 10**6
@@ -95,6 +103,31 @@ class IndexPairBatchLoader(IndexBatchLoader):
                    "weight": b["weight"]}
 
 
+def held_dtype(dtype) -> np.dtype:
+    """The type a raster is held in on the device: its own when it is an
+    integer of at most 2 bytes, else float32 (device_cache.py:263-272)."""
+    dtype = np.dtype(dtype)
+    if np.issubdtype(dtype, np.integer) and dtype.itemsize <= 2:
+        return dtype
+    return np.dtype(np.float32)
+
+
+def _budget_mb(var: str) -> float:
+    """The device budget in MB that ``var`` sets (the JAX default 4096)."""
+    return float(os.environ.get(var, "4096"))
+
+
+# CUDA's index kernels take no unsigned type wider than a byte, so a uint16
+# stack is gathered through its int16 view (the same bits) and cast after
+_INDEX_VIEW = {torch.uint16: torch.int16}
+
+
+def _take(t: torch.Tensor, *index) -> torch.Tensor:
+    """``t[index]`` for any held type."""
+    view = _INDEX_VIEW.get(t.dtype)
+    return t[index] if view is None else t.view(view)[index].view(t.dtype)
+
+
 def serve_chunks(n: int, bs: int) -> np.ndarray:
     """(n_chunks, bs_eff) tile ids, wrap-padded (device_cache.py:991-1009
     with ``FCDGAN_SERVE_BS`` unset)."""
@@ -109,8 +142,9 @@ class DeviceSceneCache:
     def __init__(self, dataset, normalize, device):
         if not self.fits(dataset):
             raise NotImplementedError(
-                "scene exceeds the device-resident cache budget "
-                f"({SCENE_CACHE_MAX_BYTES / 1e6:.0f} MB); rolling-window serving "
+                f"the scene takes {self.scene_bytes(dataset) / 1e6:.0f} MB on the device, "
+                "past FCDGAN_SCENE_CACHE_MAX_MB "
+                f"({_budget_mb('FCDGAN_SCENE_CACHE_MAX_MB'):g} MB); rolling-window serving "
                 "(DeviceSceneWindowCache) is not ported yet (ROADMAP.md, queue A)")
         if not isinstance(normalize, Normalize):
             raise ValueError("DeviceSceneCache needs a Normalize enhance")
@@ -122,7 +156,7 @@ class DeviceSceneCache:
         nband = dataset.raster_x.nband
 
         def padded(raster):
-            out = np.zeros((hp, wp, raster.nband), np.float32)
+            out = np.zeros((hp, wp, raster.nband), held_dtype(raster.dtype))
             out[pady:pady + raster.ysize, padx:padx + raster.xsize] = \
                 raster.read_block(0, 0, raster.xsize, raster.ysize)
             return torch.from_numpy(out).to(self.device)
@@ -141,16 +175,24 @@ class DeviceSceneCache:
                       for s in stats]
 
     @staticmethod
-    def fits(dataset) -> bool:
+    def scene_bytes(dataset) -> int:
+        """Device bytes of the padded rasters in their held types."""
         hp, wp = dataset.grid.padded_shape()
         rasters = (dataset.raster_x, dataset.raster_y, dataset.raster_ref)
-        bands = sum(r.nband for r in rasters if r is not None)
-        return hp * wp * bands * 4 <= SCENE_CACHE_MAX_BYTES
+        return sum(hp * wp * r.nband * held_dtype(r.dtype).itemsize
+                   for r in rasters if r is not None)
+
+    @staticmethod
+    def fits(dataset) -> bool:
+        """Whether the rasters fit ``FCDGAN_SCENE_CACHE_MAX_MB``
+        (device_cache.py:331-342)."""
+        return DeviceSceneCache.scene_bytes(dataset) <= \
+            _budget_mb("FCDGAN_SCENE_CACHE_MAX_MB") * 1e6
 
     def _gather(self, ids: torch.Tensor, with_ref: bool = False):
         """NHWC f32 tiles of ``ids``: normalized x and y, zero outside each
-        write window, and the raw reference tile (the ``prep`` body,
-        device_cache.py:87-123)."""
+        write window, and the raw reference tile, each cast to f32 after the
+        gather (the ``prep`` body, device_cache.py:87-123)."""
         ph, pw = self.grid.canvas_shape()
         org = self._org[ids]
         win = self._wins[ids]                                     # (x0, y0, w, h)
@@ -165,14 +207,14 @@ class DeviceSceneCache:
         mask = ((r >= y0) & (r < y0 + wh) & (c >= x0) & (c < x0 + ww))[..., None]
         mx, sx, my, sy = self._norm
         zero = torch.zeros((), device=self.device)
-        x = torch.where(mask, (self.px[rows, cols] - mx) / sx, zero)
-        y = torch.where(mask, (self.py[rows, cols] - my) / sy, zero)
+        x = torch.where(mask, (_take(self.px, rows, cols).float() - mx) / sx, zero)
+        y = torch.where(mask, (_take(self.py, rows, cols).float() - my) / sy, zero)
         if not with_ref:
             return x, y, None
         if self.pref is None:
             ref = torch.zeros((len(ids), ph, pw, 1), device=self.device)
         else:
-            ref = self.pref[rows, cols]
+            ref = _take(self.pref, rows, cols).float()
         return x, y, ref
 
     def tiles(self, ids: torch.Tensor):
@@ -285,3 +327,115 @@ class DeviceWHUCache:
         item = self._ids(batch["item"])
         x, y = self._xy(self._cx, self._cy, item)
         return {"x": x, "y": y, "item": item, "weight": self._weight(batch)}
+
+
+def oscd_held_dtype(dataset) -> np.dtype:
+    """The held type of an OSCD scene list's x/y tile stacks: the scenes'
+    common stored type by ``held_dtype`` (device_cache.py:1334-1339)."""
+    scenes = [s.ds for s in dataset.dslist]
+    return held_dtype(np.result_type(*[r.dtype for s in scenes
+                                       for r in (s.raster_x, s.raster_y)]))
+
+
+class DeviceOSCDCache:
+    """Raw tile stacks of an ``OSCDDataset`` resident on ``device``.
+
+    The scenes have per-scene normalizers, so every tile's raw canvas (the
+    clamped read window zero-padded to the patch) is assembled once on the
+    host, with its scene's mean/std rows and its write window; ``complete``
+    gathers a batch, normalizes it and zeroes it outside each write window on
+    the device. The region raster passes through as the host dataset gives
+    it: values above 125 become 1, smaller ones stay (data_utils.py:273-282).
+    One batch upload is the (item, weight) pair."""
+
+    def __init__(self, dataset, device):
+        n = len(dataset)
+        if n == 0:
+            raise ValueError("DeviceOSCDCache needs a non-empty dataset")
+        if any(s.ds.enhance is not None and not isinstance(s.ds.enhance, Normalize)
+               for s in dataset.dslist):
+            raise ValueError("DeviceOSCDCache needs Normalize scalers")
+        if not self.supports(dataset):
+            raise NotImplementedError(
+                f"the OSCD tiles take {self.tile_bytes(dataset) / 1e6:.0f} MB on the device, "
+                "past FCDGAN_TILE_CACHE_MAX_MB "
+                f"({_budget_mb('FCDGAN_TILE_CACHE_MAX_MB'):g} MB); the host tile loaders "
+                "are not ported yet (ROADMAP.md, queue A)")
+        self.device = torch.device(device)
+        grid0 = dataset.dslist[0].ds.grid
+        ph, pw = grid0.canvas_shape()
+        nband = dataset.dslist[0].ds.raster_x.nband
+        held = oscd_held_dtype(dataset)
+        xs = np.zeros((n, ph, pw, nband), held)
+        ys = np.zeros((n, ph, pw, nband), held)
+        refs = np.zeros((n, ph, pw, 1), np.float32)
+        regions = np.zeros((n, ph, pw, 1), np.float32)
+        norm = np.zeros((4, n, nband), np.float32)
+        norm[1] = norm[3] = 1.0
+        wins = np.zeros((n, 4), np.int64)
+        for item in range(n):
+            s_idx, cur = dataset._locate(item)
+            scene = dataset.dslist[s_idx]
+            base = scene.ds
+            _, read, write = base.grid.slices(cur)
+            win = (slice(write[1], write[1] + write[3]), slice(write[0], write[0] + write[2]))
+            xs[(item, *win)] = base.raster_x.read_block(*read)
+            ys[(item, *win)] = base.raster_y.read_block(*read)
+            if base.raster_ref is not None:
+                refs[(item, *win)] = base.raster_ref.read_block(*read)
+            if scene.raster_region is not None:
+                g = scene.raster_region.read_block(*read).astype(np.float32)
+                regions[(item, *win)] = np.where(g > 125, np.float32(1), g)
+            if base.enhance is not None:
+                e = base.enhance
+                for row, stats in enumerate((e.meansX, e.stdX, e.meansY, e.stdY)):
+                    norm[row, item] = np.asarray(stats[:nband], np.float32)
+            wins[item] = write
+        dev = self.device
+        self.nband = nband
+        self.n_tiles = n
+        self._xs, self._ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        self._refs = torch.from_numpy(refs).to(dev)
+        self._regions = torch.from_numpy(regions).to(dev)
+        self._norm = torch.from_numpy(norm).to(dev)
+        self._wins = torch.from_numpy(wins).to(dev)
+        self._rows = torch.arange(ph, device=dev).view(1, ph, 1, 1)
+        self._cols = torch.arange(pw, device=dev).view(1, 1, pw, 1)
+
+    @staticmethod
+    def tile_bytes(dataset) -> int:
+        """Device bytes of the stacks: x and y in their held type, the f32
+        reference and region canvases (device_cache.py:1428-1438)."""
+        ph, pw = dataset.dslist[0].ds.grid.canvas_shape()
+        nband = dataset.dslist[0].ds.raster_x.nband
+        itemsize = oscd_held_dtype(dataset).itemsize
+        return len(dataset) * ph * pw * (2 * nband * itemsize + 4 + 4)
+
+    @staticmethod
+    def supports(dataset) -> bool:
+        """Whether the stacks of a non-empty list fit
+        ``FCDGAN_TILE_CACHE_MAX_MB`` (device_cache.py:1414-1438)."""
+        return bool(len(dataset)) and DeviceOSCDCache.tile_bytes(dataset) <= \
+            _budget_mb("FCDGAN_TILE_CACHE_MAX_MB") * 1e6
+
+    def complete(self, batch) -> dict:
+        """An ``IndexBatchLoader`` batch -> NHWC f32 ``x``, ``y``, ``ref`` and
+        ``region`` (B, ph, pw, 1), int64 ``item`` and f32 ``weight`` (the
+        ``prep`` body, device_cache.py:1393-1412)."""
+        item = torch.from_numpy(np.asarray(batch["item"], np.int64)).to(self.device)
+        weight = torch.from_numpy(np.asarray(batch["weight"], np.float32)).to(self.device)
+        win = self._wins[item].view(-1, 4, 1, 1, 1)
+        x0, y0, ww, wh = win[:, 0], win[:, 1], win[:, 2], win[:, 3]
+        mask = ((self._rows >= y0) & (self._rows < y0 + wh)
+                & (self._cols >= x0) & (self._cols < x0 + ww))
+        mx, sx, my, sy = (t[item][:, None, None, :] for t in self._norm)
+        zero = torch.zeros((), device=self.device)
+        x = torch.where(mask, (_take(self._xs, item).float() - mx) / sx, zero)
+        y = torch.where(mask, (_take(self._ys, item).float() - my) / sy, zero)
+        return {"x": x, "y": y, "ref": self._refs[item], "region": self._regions[item],
+                "item": item, "weight": weight}
+
+    def loader(self, batch_size: int, shuffle: bool = False,
+               seed: int = 0) -> IndexBatchLoader:
+        """Epoch batches over the tiles, for ``complete``."""
+        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed)

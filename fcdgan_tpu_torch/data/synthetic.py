@@ -7,11 +7,17 @@ on-disk layouts the drivers read:
     reference raster (the Demo_USSS input contract, Demo_USSS.py:47-50,64);
   * ``make_whu_dataset``: ``before/``, ``after/``, ``Label/`` slice dirs and
     ``label.txt`` (the BuildingProcess.py output contract,
-    BuildingProcess.py:150-167), uint8 slices written as plain TIFFs.
+    BuildingProcess.py:150-167), uint8 slices written as plain TIFFs;
+  * ``make_oscd_dataset``: per-scene ``ImagePair/`` dirs with an ENVI image
+    pair, ``{name}-cm.tif`` ({1, 2} coded) and ``{name}-region.tif``, plus
+    the train/test scene lists (the OSCDProcess.py output contract,
+    OSCDProcess.py:22-30, 75-78).
 
 Image Y is a smooth band-mixed function of X outside the change rectangles
 and carries a strong offset inside them. The same seed gives the same
-pixels as the JAX package, which writes its WHU slices through PIL.
+pixels as the JAX package, which writes its WHU slices through PIL; with
+its default arguments ``make_oscd_dataset`` writes the same files, byte for
+byte.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from .envi import write_envi
 from .tiff import TiffWriter
 
 Rect = Tuple[int, int, int, int]  # (x, y, w, h)
@@ -99,3 +106,45 @@ def make_whu_dataset(out_dir: str, n_changed: int = 4, n_unchanged: int = 6,
     with open(os.path.join(out_dir, "label.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     return {"root": out_dir, **dirs, "label_txt": os.path.join(out_dir, "label.txt")}
+
+
+def make_oscd_dataset(out_dir: str, train_scenes: Sequence[str] = ("alpha", "beta"),
+                      test_scenes: Sequence[str] = ("gamma",),
+                      xsize: int = 64, ysize: int = 64, nband: int = 4,
+                      region_expand: int = 6, seed: int = 0,
+                      rects: Sequence[Rect] = ((10, 12, 14, 12), (40, 36, 12, 16)),
+                      dtype=np.float32) -> dict:
+    """Write the OSCD layout of the scenes into ``out_dir``: each scene's
+    change rectangles ``rects`` (the defaults fit a 64 px scene), its region
+    raster (255 over each rectangle grown by ``region_expand`` px, clipped
+    to the scene), and ``train.txt`` / ``test.txt``. An integer ``dtype``
+    (np.uint16, like Sentinel-2 L1C) rounds the image samples before
+    writing."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    dtype = np.dtype(dtype)
+    for scene in list(train_scenes) + list(test_scenes):
+        d = os.path.join(out_dir, scene, "ImagePair")
+        os.makedirs(d, exist_ok=True)
+        x, y, mask = _scene_pair(rng, ysize, xsize, nband, rects)
+        if np.issubdtype(dtype, np.integer):
+            x = np.round(x).astype(dtype)
+            y = np.round(y).astype(dtype)
+        write_envi(os.path.join(d, f"{scene}_20160120"), x, geotransform=GT)
+        write_envi(os.path.join(d, f"{scene}_20180328"), y, geotransform=GT)
+        # cm coded {1 unchanged, 2 changed} (OSCDProcess.py:57)
+        with TiffWriter(os.path.join(d, f"{scene}-cm.tif"), xsize, ysize, 1, np.uint8, GT) as w:
+            w.write_block((mask + 1).astype(np.uint8))
+        region = np.zeros_like(mask)
+        for rx, ry, rw, rh in rects:
+            x0, y0 = max(rx - region_expand, 0), max(ry - region_expand, 0)
+            x1, y1 = min(rx + rw + region_expand, xsize), min(ry + rh + region_expand, ysize)
+            region[y0:y1, x0:x1] = 255
+        with TiffWriter(os.path.join(d, f"{scene}-region.tif"), xsize, ysize, 1, np.uint8,
+                        GT) as w:
+            w.write_block(region)
+    with open(os.path.join(out_dir, "train.txt"), "w") as f:
+        f.write(",".join(train_scenes) + "\n")
+    with open(os.path.join(out_dir, "test.txt"), "w") as f:
+        f.write(",".join(test_scenes) + "\n")
+    return {"root": out_dir, "train_txt": "train.txt", "test_txt": "test.txt"}

@@ -1,7 +1,7 @@
 """Overlap-padded tile grid over a large scene: pure index arithmetic.
 
 Copy of the JAX package's ``data/tile_grid.py``, trimmed to what scene
-serving uses. Conventions (identical to the reference, data_utils.py:57-63,
+serving and the RSSS scene lists use. Conventions (identical to the reference, data_utils.py:57-63,
 91-97, 154-176):
 
   * the scene of size (xsize, ysize) is covered by core tiles of stride
@@ -84,6 +84,13 @@ class TileGrid:
         read = (rxs, rys, rxe - rxs, rye - rys)
         write = (x_ori, y_ori, rxe - rxs, rye - rys)
         return core, read, write
+
+    def interior(self, item: int) -> Tuple[int, int, int, int]:
+        """(y0, y1, x0, x1) of the tile's core inside its canvas, the
+        stitched region (parity: OSCD ``EffRange``, data_utils.py:390-405)."""
+        padx, pady = self.overlap_padding
+        core, _, _ = self.slices(item)
+        return pady, pady + core[3], padx, padx + core[2]
 
     def interior_sizes(self) -> np.ndarray:
         """(n_tiles, 2) int32 (core_h, core_w) of every item: each tile's

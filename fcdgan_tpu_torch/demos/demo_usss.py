@@ -65,15 +65,14 @@ def _check_supported(cfg: USSSConfig) -> None:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
 
 
-def _log_accuracy(writer: ScalarWriter, ev: Evaluator, step: int):
+def _log_accuracy(writer: ScalarWriter, ev: Evaluator, step: int, prefix: str = ""):
     miou, ciou = ev.Mean_Intersection_over_Union()
-    writer.add_scalar("Overall Accuracy:", ev.Pixel_Accuracy(), step)
-    writer.add_scalar("Precision Rate", ev.Pixel_Precision_Rate(), step)
-    writer.add_scalar("Recall Rate", ev.Pixel_Recall_Rate(), step)
-    writer.add_scalar("Kappa Coefficient:", ev.Pixel_Kappa(), step)
-    writer.add_scalar("F1", ev.Pixel_F1_score(), step)
-    writer.add_scalar("mIOU", miou, step)
-    writer.add_scalar("cIOU", ciou, step)
+    for tag, value in (("Overall Accuracy:", ev.Pixel_Accuracy()),
+                       ("Precision Rate", ev.Pixel_Precision_Rate()),
+                       ("Recall Rate", ev.Pixel_Recall_Rate()),
+                       ("Kappa Coefficient:", ev.Pixel_Kappa()),
+                       ("F1", ev.Pixel_F1_score()), ("mIOU", miou), ("cIOU", ciou)):
+        writer.add_scalar(prefix + tag, value, step)
 
 
 def run(cfg: USSSConfig) -> Dict:

@@ -1,8 +1,8 @@
-"""The USSS and WSSS loss stacks over NHWC batches (parity: reference Loss.py:17-124).
+"""The USSS, WSSS and RSSS loss stacks over NHWC batches (parity: reference Loss.py:17-141).
 
 Counterparts of the JAX package's ``ops/losses.py`` ``hard_mask``,
-``perception_loss``, ``cnet_loss`` (USSS) and ``cgenerator_loss`` (WSSS);
-``region_loss`` (RSSS) comes with that slice. Every function takes an
+``perception_loss``, ``cnet_loss`` (USSS), ``cgenerator_loss`` (WSSS and
+RSSS) and ``region_loss`` (RSSS). Every function takes an
 optional ``sample_weight`` (B,): weighted terms divide by its sum, as the
 reference divides by the batch size. ``cmap`` is the (B, H, W, 1) soft
 change density; images are masked by ``1 - cmap`` broadcast over bands, and
@@ -148,3 +148,21 @@ def cgenerator_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.T
                              per_band=perception_per_band, sample_weight=sample_weight,
                              dtype=perception_dtype, target_grad=perception_target_grad)
     return generator_loss, ssim_loss, p_loss
+
+
+def region_loss(cmap: torch.Tensor, region: torch.Tensor, kind: str = "l1",
+                sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The density inside ``region`` against zero, rescaled by the region's
+    size (parity: Loss.py:127-141, losses.py:276-299): per sample
+    ``criterion(cmap * region, 0) * num_pixel / num_region`` with ``kind``
+    ``l1`` (mean |.|) or ``mse`` (mean square), a sample with an empty
+    region skipped, the weighted batch mean."""
+    w = _weights(cmap, sample_weight)
+    wn = torch.clamp(w.sum(), min=1.0)
+    num_pixel = cmap.shape[1] * cmap.shape[2]
+    num_region = region.sum(dim=(1, 2, 3))
+    masked = cmap * region
+    per = (masked.abs() if kind == "l1" else masked.square()).mean(dim=(1, 2, 3))
+    per = per * num_pixel / torch.where(num_region > 0, num_region, torch.ones_like(num_region))
+    keep = (num_region > 0).to(per.dtype)
+    return (per * keep * w).sum() / wn

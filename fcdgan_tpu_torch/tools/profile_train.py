@@ -7,7 +7,11 @@ Segmentor, the random VGG16, per-band perception at relu5_3) and profiles a
 joint step. ``--mode wsss`` builds that of its wsss phase (synthetic 200x200
 RGB uint8 WHU slices, batch 15 pairs, bf16, seeded Generator, Segmentor and
 Discriminator, RGB perception at relu5_3) and profiles an adversarial step.
-Either runs four warm steps (the kernels build, cuDNN picks its
+``--mode rsss`` builds that of its rsss phase (a synthetic OSCD scene of
+1024x1024 4-band uint16, patch 200, padding 10, batch 12, bf16, seeded
+4-band Generator, Segmentor and Discriminator, per-band perception at
+relu5_3, the RSSS loss weights) and profiles an adversarial step on tiles
+that hold a region. Each mode runs four warm steps (the kernels build, cuDNN picks its
 algorithms), times ``--steps`` more with a synchronize after each, then runs
 one step under ``torch.profiler``. Prints one JSON line: the step's wall
 time with and without the profiler, the device's busy time and idle share
@@ -19,7 +23,7 @@ before its kernels.
 
 Run on a machine with a CUDA card, from the repository root:
 
-    python -m fcdgan_tpu_torch.tools.profile_train [--mode wsss] [--steps 8]
+    python -m fcdgan_tpu_torch.tools.profile_train [--mode wsss|rsss] [--steps 8]
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from .profile_serve import device_summary
 
 WSSS_SIZE = 200  # px, the side of a WHU Building CD slice
+RSSS_PATCH = 200  # px, the RSSS tile (Demo_RSSS.py:43)
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("conv3x3 kernel", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
@@ -136,6 +141,48 @@ def _wsss_step(device, batch_size):
     return step, batch_size
 
 
+def _rsss_step(device, batch_size, scene):
+    from ..data.datasets import OSCDDataset
+    from ..data.device_cache import DeviceOSCDCache
+    from ..data.synthetic import make_oscd_dataset
+    from ..demos.demo_rsss import _scene_scalers
+    from ..models.discriminator import Discriminator
+    from ..models.generator import Generator
+    from ..models.segmentor import Segmentor
+    from ..models.vgg import VGG16Weights, load_vgg16_params
+    from ..train import schedules
+    from ..train.optim import adam, rmsprop
+    from ..train.steps import PerceptionConfig, RSSSSteps
+
+    patch = (RSSS_PATCH, RSSS_PATCH)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
+        make_oscd_dataset(work, ("alpha",), (), scene, scene, 4, region_expand=40, seed=3,
+                          rects=((150, 180, 120, 90), (600, 420, 150, 210)), dtype=np.uint16)
+        ds = OSCDDataset(work, "train.txt", _scene_scalers(work, "train.txt", patch, "statsMS"),
+                         patch_size=patch, overlap_padding=(10, 10))
+        cache = DeviceOSCDCache(ds, device)
+        items = [i for i in range(len(ds)) if ds[i][4].any()]
+    torch.manual_seed(0)
+    dt = torch.bfloat16
+    net_g, net_s, net_d = (cls(4, compute_dtype=dt).to(device)
+                           for cls in (Generator, Segmentor, Discriminator))
+    steps = RSSSSteps(net_g, net_s, net_d, adam(net_g.parameters()),
+                      rmsprop(net_s.parameters()), rmsprop(net_d.parameters()),
+                      VGG16Weights(load_vgg16_params(), device),
+                      PerceptionConfig((29,), True, dtype=dt), 0.1, 0.0, 0.5, 0.02, 1.0, 2.0,
+                      ds.interior_sizes(), (10, 10))
+    batch = {"item": np.resize(np.asarray(items), batch_size),
+             "weight": np.ones(batch_size, np.float32)}
+    lr_s, lr_d = schedules.S_ADV_RSSS(2), schedules.D_ADV_RSSS(2)
+
+    def step():
+        db = cache.complete(batch)
+        return steps.adversarial(db["x"], db["y"], db["ref"], db["region"], db["item"],
+                                 db["weight"], lr_s, lr_d)
+
+    return step, batch_size
+
+
 def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,16 +190,19 @@ def main(argv=None):
     from ..utils.device import resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("usss", "wsss"), default="usss")
-    ap.add_argument("--scene", type=int, default=1024, help="usss: scene side in px")
+    ap.add_argument("--mode", choices=("usss", "wsss", "rsss"), default="usss")
+    ap.add_argument("--scene", type=int, default=1024, help="usss, rsss: scene side in px")
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="tiles (usss, default 10) or pairs (wsss, default 15) per step")
+                    help="tiles (usss, default 10; rsss, default 12) or pairs (wsss, "
+                         "default 15) per step")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     if args.mode == "usss":
         run, bs = _usss_step(device, args.batch_size or 10, args.scene)
+    elif args.mode == "rsss":
+        run, bs = _rsss_step(device, args.batch_size or 12, args.scene)
     else:
         run, bs = _wsss_step(device, args.batch_size or 15)
 
@@ -175,7 +225,7 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     print(json.dumps({
         "device": torch.cuda.get_device_name(device), "mode": args.mode,
-        "batch_size": bs, "scene": args.scene if args.mode == "usss" else None,
+        "batch_size": bs, "scene": None if args.mode == "wsss" else args.scene,
         "slice": WSSS_SIZE if args.mode == "wsss" else None,
         "step_ms_unprofiled": [t * 1e3 for t in times],
         "step_ms_unprofiled_median": statistics.median(times) * 1e3,

@@ -36,7 +36,8 @@ class WarmupSustainDecay:
         return (self.lr_max - self.lr_min) * self.exp_decay ** (epoch - w - s) + self.lr_min
 
 
-#: USSS/WSSS/RSSS generator pretrain (Demo_USSS.py:133, Demo_WSSS.py:148)
+#: USSS/WSSS/RSSS generator pretrain (Demo_USSS.py:133, Demo_WSSS.py:148,
+#: Demo_RSSS.py:180)
 G_PRETRAIN = WarmupSustainDecay(lr_start=1e-5, lr_max=3e-4, warmup_epochs=10, sustain_epochs=10)
 
 #: USSS segmentor init phase (Demo_USSS.py:201)
@@ -50,3 +51,9 @@ S_ADV_WSSS = WarmupSustainDecay(lr_start=1e-4, lr_max=1e-3, warmup_epochs=5)
 
 #: WSSS adversarial discriminator (Demo_WSSS.py:227)
 D_ADV_WSSS = WarmupSustainDecay(lr_start=1e-6, lr_max=1e-5, lr_min=1e-8, warmup_epochs=5)
+
+#: RSSS adversarial segmentor (Demo_RSSS.py:261)
+S_ADV_RSSS = WarmupSustainDecay(lr_start=1e-4, lr_max=1e-3, warmup_epochs=5)
+
+#: RSSS adversarial discriminator (Demo_RSSS.py:262)
+D_ADV_RSSS = WarmupSustainDecay(lr_start=5e-6, lr_max=5e-5, lr_min=5e-7, warmup_epochs=5)

@@ -1,11 +1,14 @@
-"""Train and inference steps of the unsupervised and weakly supervised modes
-(JAX ``train/steps.py``).
+"""Train and inference steps of the unsupervised, weakly supervised and
+regional supervised modes (JAX ``train/steps.py``).
 
 ``USSSSteps`` holds the Generator, the Segmentor, their optimizers and the
 loss configuration, and runs one batch of each reference phase
 (Demo_USSS.py:124-400) plus inference (:404-473). ``WSSSSteps`` does the
 same for the G pretrain (Demo_WSSS.py:140-204), the adversarial S/D step
-(:235-343) and the final train-mode-BN inference (:387-445). Batches are NHWC float32
+(:235-343) and the final train-mode-BN inference (:387-445); ``RSSSSteps``
+for the G pretrain (Demo_RSSS.py:173-238), the adversarial step with a
+region-synthesized unchanged pair (:244-397), the per-epoch test
+evaluation (:399-447) and the final inference. Batches are NHWC float32
 tensors on the models' device, as in the JAX package; the models see their
 NCHW channels_last views. A step returns its metrics as device tensors (the
 confusion matrix included), so the epoch loop reads them once per epoch.
@@ -306,3 +309,163 @@ class WSSSSteps:
         before SModel is saved."""
         self.S.train()
         return _nhwc(self.S(_nchw(x), _nchw(y)))
+
+
+class RSSSSteps:
+    """Steps of the regional supervised mode (JAX ``RSSSSteps``, :466-662).
+
+    Gradient flow, as in the JAX package:
+      * G pretrain with the REGION raster as the mask (Demo_RSSS.py:200-205):
+        the mask and the target are data, so the perception target branch
+        runs forward only.
+      * Adversarial: ONE train-mode S forward keeps its graph. The D update
+        sees the detached mask, on the pair (x, y) and on the unchanged pair
+        synthesized from the region, (x, y*(1-region) + x*region), both
+        masked by the same ``1 - cmask`` (:296-301), with loss
+        ``1 + wmean(D(nc)) - wmean(D(c))``, then RMSprop. The frozen G runs
+        in eval mode under ``no_grad``. The S loss ``dw*s_d + l1w*l1 + gw*g +
+        rw*r``, with ``l1 = region_loss(cmap, region, l1)`` and ``r =
+        region_loss(cmap, 1 - region, mse)``, re-evaluates the UPDATED D on
+        the pair masked by the live map; its gradients go into S's
+        parameters only, so D's BN statistics move on all three of its
+        forwards and D is stepped once.
+      * The per-epoch test evaluation thresholds the map over each tile's
+        interior (``test_interior_sizes``): in eval mode
+        (``eval_confusion``), or in train mode under ``no_grad``
+        (``eval_confusion_train``, reference parity: the test batches move
+        S's BN running statistics, Demo_RSSS.py:415).
+    Each training step leaves each stepped net's gradients in ``.grad``."""
+
+    def __init__(self, generator, segmentor, discriminator, opt_g, opt_s, opt_d,
+                 vgg: VGG16Weights, perception: PerceptionConfig, perception_weight: float,
+                 ssim_weight: float, g_weight: float, l1_weight: float, d_weight: float,
+                 r_weight: float, interior_sizes: np.ndarray, pad: Tuple[int, int],
+                 gt_map: Sequence[int] = (1, 2), pre_map: Sequence[int] = (0, 1),
+                 prob_thresh: float = 0.5, discriminator_continuous: bool = True,
+                 msssim_weights: Optional[Sequence[float]] = None,
+                 test_interior_sizes: Optional[np.ndarray] = None, ssim_metric: bool = True):
+        if not ssim_metric and ssim_weight != 0:
+            raise ValueError("ssim_metric=False requires ssim_weight == 0")
+        self.G, self.S, self.D = generator, segmentor, discriminator
+        self.opt_g, self.opt_s, self.opt_d = opt_g, opt_s, opt_d
+        self.vgg = vgg
+        self.pc = perception
+        self.pw, self.sw = perception_weight, ssim_weight
+        self.gw, self.l1w, self.dw, self.rw = g_weight, l1_weight, d_weight, r_weight
+
+        def sizes(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=vgg.device)
+
+        self.interior = sizes(interior_sizes)
+        self.test_interior = (self.interior if test_interior_sizes is None
+                              else sizes(test_interior_sizes))
+        self.pad = tuple(pad)
+        self.gt_map, self.pre_map = tuple(gt_map), tuple(pre_map)
+        self.prob_thresh = prob_thresh
+        self.continuous = discriminator_continuous
+        self.msw = tuple(msssim_weights) if msssim_weights is not None else None
+        self.ssim_metric = ssim_metric
+
+    def _cgen(self, y, y_fake, cmap, w, target_grad=True):
+        return L.cgenerator_loss(
+            y, y_fake, cmap, self.vgg, self.pc.feature_layers,
+            perception_per_band=self.pc.per_band, msssim_weights=self.msw,
+            sample_weight=w, ssim_grad=self.sw != 0, perception_dtype=self.pc.dtype,
+            perception_target_grad=target_grad, compute_ssim=self.ssim_metric)
+
+    def _d(self, x, y):
+        return self.D(_nchw(x), _nchw(y))
+
+    def _s(self, x, y):
+        return _nhwc(self.S(_nchw(x), _nchw(y)))
+
+    def _confusion(self, cmap, ref, item, w, interior):
+        """Interior-only confusion of the thresholded map (strict ``>``),
+        padded samples weighted out (steps.py:638-643)."""
+        with torch.no_grad():
+            cmask = (cmap[..., 0] > self.prob_thresh).to(torch.float32)
+            valid = interior_valid_mask(item, interior, tuple(cmap.shape[1:3]),
+                                        self.pad) * w.view(-1, 1, 1)
+            return confusion_update(ref[..., 0], cmask, self.gt_map, self.pre_map, valid)
+
+    # -- G pretrain with the region raster as mask (Demo_RSSS.py:173-238) ---
+    def g_pretrain(self, x, y, region, w, lr) -> Dict[str, torch.Tensor]:
+        self.G.train()
+        y_fake = _nhwc(self.G(_nchw(x)))
+        gen, ssim, perc = self._cgen(y, y_fake, region, w, target_grad=False)
+        loss = gen + self.pw * perc + self.sw * ssim
+        self.opt_g.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(self.opt_g, lr)
+        self.opt_g.step()
+        return {"g_loss": loss.detach(), "generator_loss": gen.detach(),
+                "perception_loss": perc.detach(), "ssim_loss": ssim.detach()}
+
+    # -- adversarial D-then-S step with the synthesized pair (:266-397) ------
+    def adversarial(self, x, y, ref, region, item, w, lr_s, lr_d
+                    ) -> Dict[str, torch.Tensor]:
+        self.G.eval()
+        self.S.train()
+        self.D.train()
+        cmap = self._s(x, y)
+
+        # D update: the mask is data, the gradients go into D only
+        cmask = (cmap if self.continuous else L.hard_mask(cmap)).detach()
+        keep = 1 - cmask
+        y_unc = y * (1 - region) + x * region  # inside regions x replaces y
+        c_out = self._d(x * keep, y * keep)  # D's BN statistics: c, then nc
+        nc_out = self._d(x * keep, y_unc * keep)
+        d_loss = 1.0 + _wmean(nc_out, w) - _wmean(c_out, w)
+        self.opt_d.zero_grad(set_to_none=True)
+        d_loss.backward()
+        set_lr(self.opt_d, lr_d)
+        self.opt_d.step()
+
+        with torch.no_grad():  # the frozen G, eval mode (Demo_RSSS.py:240)
+            y_fake = _nhwc(self.G(_nchw(x)))
+
+        # S loss against the updated D
+        keep = 1 - (cmap if self.continuous else L.hard_mask(cmap))
+        s_d_loss = _wmean(self._d(x * keep, y * keep), w)
+        gen, ssim, perc = self._cgen(y, y_fake, cmap, w)
+        g_loss = gen + self.pw * perc + self.sw * ssim
+        l1_loss = L.region_loss(cmap, region, "l1", sample_weight=w)
+        r_loss = L.region_loss(cmap, 1 - region, "mse", sample_weight=w)
+        s_loss = (self.dw * s_d_loss + self.l1w * l1_loss + self.gw * g_loss
+                  + self.rw * r_loss)
+        params = [p for p in self.S.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(s_loss, params, allow_unused=True)
+        self.opt_s.zero_grad(set_to_none=True)
+        for p, g in zip(params, grads):
+            p.grad = g
+        set_lr(self.opt_s, lr_s)
+        self.opt_s.step()
+        return {"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
+                "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
+                "r_loss": r_loss.detach(), "g_loss": g_loss.detach(),
+                "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
+                "perception_loss": perc.detach(),
+                "confusion": self._confusion(cmap.detach(), ref, item, w, self.interior)}
+
+    # -- inference and the per-epoch test evaluation (:399-504) --------------
+    @torch.no_grad()
+    def infer(self, x, y) -> torch.Tensor:
+        """Eval-mode change density (B, H, W, 1) f32 of NHWC pairs."""
+        self.S.eval()
+        return self._s(x, y)
+
+    def eval_confusion(self, x, y, ref, item, w):
+        """Eval-mode test confusion over the tiles' interiors, and the map."""
+        cmap = self.infer(x, y)
+        return self._confusion(cmap, ref, item, w, self.test_interior), cmap
+
+    @torch.no_grad()
+    def eval_confusion_train(self, x, y, ref, item, w):
+        """The same with S in train mode (reference parity: the reference
+        never calls ``netS.eval()`` in its adversarial loop, so its test
+        forward, Demo_RSSS.py:415, normalizes with the batch statistics and
+        moves S's BN running statistics, which the final eval-mode inference
+        then uses)."""
+        self.S.train()
+        cmap = self._s(x, y)
+        return self._confusion(cmap, ref, item, w, self.test_interior), cmap

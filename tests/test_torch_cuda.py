@@ -448,3 +448,88 @@ def test_phase_pool_raises_on_layouts_it_does_not_take(dtype):
     with pytest.raises(ValueError, match="aligned"):
         phase_pool(unaligned.view(2, 4, 4, 64))
     assert phase_pool.launches == before
+
+
+# the shapes of the RSSS training path: 4 bands at 200 px, S on 2 x 12
+# stacked tiles, G at 12 and 20, the per-band VGG on 4 x 12 planes
+
+def _card_generator(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 200, 200, 4, 64), (12, 200, 200, 64, 4)],
+                         ids=["S inc.conv1, C_in 4 (gather)", "C_out 4 from 64"])
+def test_conv3x3_rsss_shapes(shape):
+    xt, kt = _conv_on_card(shape, "bfloat16", seed=8)
+    before = dict(conv3x3.launches_by_variant)
+    got = conv3x3(xt, kt)
+    torch.cuda.synchronize()
+    assert conv3x3.launches_by_variant == {**before, "wgmma": before["wgmma"] + 1}
+    _assert_conv_matches_plain(xt, kt, got)
+    assert torch.equal(got, conv3x3(xt, kt))
+
+
+@pytest.mark.cuda
+def test_fused_ssim_rsss_level():
+    """The first MS-SSIM level of an RSSS step: 12 images of 4 channels at
+    200 px, one channel group of exactly four."""
+    gen = _card_generator(9)
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain
+
+    x = torch.rand((12, 200, 200, 4), generator=gen, device="cuda")
+    y = (x + 0.08 * torch.randn(x.shape, generator=gen, device="cuda")).clamp(0, 1)
+    before = ssim_level.launches
+    got = ssim_level(x, y, 1.0)
+    torch.cuda.synchronize()
+    assert ssim_level.launches == before + 1
+    for g, w in zip(got, ssim_level_plain(x, y, 1.0)):
+        assert g.shape == (12, 4) and (g - w).abs().max().item() <= 2e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, ssim_level(x, y, 1.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 200, 200, 64), (80, 200, 200, 64)])
+def test_channel_sums_rsss_shapes(shape):
+    """Both sum kernels in bf16 at an RSSS BN input (S on the stacked pair)
+    and at 80 x 200 x 200, within 1e-5 of the sum of magnitudes, bitwise
+    repeatable."""
+    gen = _card_generator(10)
+    from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
+                                                   channel_sums_pair_plain,
+                                                   channel_sums_plain)
+
+    a = (torch.randn(shape, generator=gen, device="cuda") * 2 + 1).to(torch.bfloat16)
+    b = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = (*channel_sums(a, square=True), *channel_sums_pair(a, b))
+    af, bf = a.float().reshape(-1, shape[-1]), b.float().reshape(-1, shape[-1])
+    want = (*channel_sums_plain(a, square=True), *channel_sums_pair_plain(a, b))
+    scale = (af.abs().sum(0), af.square().sum(0), af.abs().sum(0), (af * bf).abs().sum(0))
+    for g, w, s in zip(got, want, scale):
+        assert bool(((g - w).abs() <= 1e-5 * s + 1e-30).all())
+    again = (*channel_sums(a, square=True), *channel_sums_pair(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(48, 200, 200, 64), (48, 25, 25, 512)])
+def test_pools_at_rsss_vgg_batch(shape, dtype):
+    """phase_pool and pool_bwd on 4 x 12 VGG planes: bit-equal to their plain
+    versions."""
+    gen = _card_generator(11)
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool, phase_pool_plain
+    from fcdgan_tpu_torch.ops.pool_bwd import pool_bwd, pool_bwd_plain
+
+    dt = getattr(torch, dtype)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda")).to(dt)
+    n, h, w, c = shape
+    dy = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").to(dt)
+    before = (phase_pool.launches, pool_bwd.launches)
+    fwd, bwd = phase_pool(x), pool_bwd(x, dy)
+    torch.cuda.synchronize()
+    assert (phase_pool.launches, pool_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(fwd, phase_pool_plain(x))
+    assert torch.equal(bwd, pool_bwd_plain(x, dy))

@@ -80,7 +80,6 @@ def test_unported_options_raise(kw, tmp_path):
 
 
 def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):
-    from fcdgan_tpu_torch.data import device_cache
     from fcdgan_tpu_torch.data.synthetic import make_usss_scene
     from fcdgan_tpu_torch.io.checkpoint import save_net
     from fcdgan_tpu_torch.models.segmentor import Segmentor
@@ -88,7 +87,7 @@ def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):
 
     make_usss_scene(str(tmp_path), 40, 40, 3, seed=1)
     save_net(str(tmp_path / "SModel.pkl"), Segmentor(3))
-    monkeypatch.setattr(device_cache, "SCENE_CACHE_MAX_BYTES", 1000)
+    monkeypatch.setenv("FCDGAN_SCENE_CACHE_MAX_MB", "0.001")
     with pytest.raises(NotImplementedError, match="DeviceSceneWindowCache"):
         run(InferConfig(dir=str(tmp_path), smodel=str(tmp_path / "SModel.pkl"),
                         device="cpu", compute_dtype="float32",
