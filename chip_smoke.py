@@ -55,10 +55,21 @@ Phases, each printed on its own line; any failure exits non-zero:
                         f32, bit-equal to its plain version and to
                         F.max_pool2d
   serve    tools.infer.main on a 2048x2048 3-band uint16 scene with a seeded
-           full-width Segmentor (bf16): output rasters, density in [0, 1],
-           finite oa/f1, conv3x3 launched 3 times and phase_pool 4 times per
-           chunk (the other kernels not at all), every conv3x3 launch on the
-           wgmma variant; px_per_s
+           full-width Segmentor (bf16), the fused resident path at main()'s
+           chunk width (FCDGAN_SERVE_BS=32 unless set): output rasters,
+           density in [0, 1], finite oa/f1, conv3x3 launched 3 times and
+           phase_pool 4 times per chunk of the plan that serve_chunks gives
+           (the other kernels not at all), every conv3x3 launch on the wgmma
+           variant; px_per_s
+  serve_bs the same scene through tools.infer.run at FCDGAN_SERVE_BS 0 and
+           32, in turns, twice each: densities within one bf16 step of the
+           density (2^-8) and the share of pixels that moved, each run's
+           launches from its chunk plan; px_per_s of each
+  serve_stream  the same scene on the streaming path (host tiles, pinned
+           uploads, a writer thread), downloads in float32 and uint8, twice
+           each: within 1e-3 (uint8: 1/510 + 1e-3) of the fused batch-exact
+           density, 3 conv3x3 (all wgmma) and 4 phase_pool launches a batch;
+           px_per_s
   parity   one chunk of 2 tiles through the port in f32 on the card and on
            the CPU (plain versions): max abs density difference <= 1e-3
   train    demos.demo_usss.main on a 1024x1024 3-band uint16 scene (patch
@@ -91,6 +102,12 @@ Phases, each printed on its own line; any failure exits non-zero:
            gradient norms (rtol 1e-3), BN running stats of S and D (atol
            1e-4), and the BN kernels against the plain sums on the step's own
            BN inputs (1e-5 of the sum of magnitudes)
+  serve_whu  tools.infer --mode whu over the wsss phase's 150 changed slices
+           with its SModel, batch 15: bn_mode train (S's BN statistics per
+           batch, one channel_sums launch per BN and batch) with the density
+           images within one grey level of the demo's own train-mode
+           inference (byte-equality reported), then bn_mode eval; finite
+           metrics, launches from the batches; slices/s of each
   rsss     demos.demo_rsss.main on a synthetic OSCD layout: train scenes
            alpha and beta, test scene gamma, each 1024x1024 with 4 uint16
            bands (Sentinel-2 L1C's type), change rectangles across the scene
@@ -112,6 +129,13 @@ Phases, each printed on its own line; any failure exits non-zero:
            both calls (atol 1e-4), the BN kernels against the plain sums on
            the calls' own BN inputs, and the step's 5 MS-SSIM levels at C = 4,
            kernel against plain version (atol 2e-5)
+
+  serve_oscd  tools.infer --mode oscd over all three scenes of the rsss
+           phase with its SModel, bf16, batch 12 at FCDGAN_SERVE_BS=0 (the
+           demo's own inference chunks), the fused path with two scenes in
+           flight, twice: a density and a color raster per scene, the test
+           scene's density within 1e-3 of the demo's (bit-equality reported),
+           finite oa/kappa/auc, launches from the chunk plan; px_per_s
 
 Then one JSON line of kernel records (conv3x3's sums one serving chunk;
 the JSON summary file adds its ms per training step), and as the last line
@@ -199,6 +223,10 @@ RSSS_INIT_BATCH = 20
 RSSS_BATCH = 12
 RSSS_EPOCHS = (1, 3)  # G pretrain, adversarial
 SOURCES = ["conv3x3", "pool_bwd", "fused_ssim", "channel_sums", "phase_pool"]
+# S computes in bf16 and its density is bf16-valued: one step is 2^-8 on
+# [0.5, 1), the largest below 1. Two chunk widths give cuDNN other batches
+# (other algorithms), so their densities may differ by that step
+BF16_STEP = 2.0 ** -8
 
 
 def phase(name, payload):
@@ -766,10 +794,12 @@ def derived_launches(torch, n_tiles):
     generated tiles; an S-init step runs G forward without a graph and S and
     the VGG (one stacked pass) forward and backward; a joint step both nets
     forward and backward; an inference chunk S in eval mode."""
+    from fcdgan_tpu_torch.data.device_cache import serve_chunks
+
     k = _model_counts(torch, PATCH)
     chunks = -(-n_tiles // BATCH)
     n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * chunks for e in TRAIN_EPOCHS)),
-                   inference_chunk=chunks)
+                   inference_chunk=len(serve_chunks(n_tiles, BATCH)))
     gb, sb = k["g_bns"], k["s_bns"]
     sp, vp = k["s_pools"], k["vgg_pools"]
     gs_convs, levels = k["g_convs"] + k["s_convs"], k["levels"]
@@ -872,24 +902,64 @@ def make_model(torch, work, scene):
     return path, ds, cache
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """Within the block, each named environment variable set to its value
+    (None: unset); the old values come back after it."""
+    old = {k: os.environ.get(k) for k in values}
+
+    def put(items):
+        for k, v in items.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(values)
+    try:
+        yield
+    finally:
+        put(old)
+
+
+def derived_serve_launches(counters, k, n_chunks):
+    """The launches of serving ``n_chunks`` chunks with an eval-mode S
+    (``k`` from ``_model_counts``): its gated convs and Down pools per chunk,
+    no BN statistics, no backward."""
+    want = {name: 0 for name in counters}
+    want.update(conv3x3=k["s_convs"] * n_chunks, phase_pool=k["s_pools"] * n_chunks)
+    return want
+
+
+def launch_counts(counters):
+    """(each kernel's launches, conv3x3's per variant) since the last reset."""
+    return ({name: fn.launches for name, fn in counters.items()},
+            dict(counters["conv3x3"].launches_by_variant))
+
+
+def all_wgmma(launches, variants):
+    return variants == {"wgmma": launches["conv3x3"], "fma_f32": 0}
+
+
 def serve_phase(torch, work, smodel):
     import numpy as np
 
+    from fcdgan_tpu_torch.data.device_cache import serve_chunks
     from fcdgan_tpu_torch.data.raster import open_raster
     from fcdgan_tpu_torch.tools import infer
 
     argv = ["--dir", work, "--smodel", smodel, "--ref-name", "ref.tif",
-            "--batch-size", str(BATCH)]
+            "--batch-size", str(BATCH), "--progress", "false"]
     counters = kernel_counters()
-    reset_launches(counters)
-    out = infer.main(argv)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    variants = dict(counters["conv3x3"].launches_by_variant)
     n_tiles = math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2
-    n_chunks = math.ceil(n_tiles / BATCH)
-    k = _model_counts(torch, PATCH)
-    want = {name: 0 for name in counters}  # eval mode: no BN statistics, no backward
-    want.update(conv3x3=k["s_convs"] * n_chunks, phase_pool=k["s_pools"] * n_chunks)
+    with environ(FCDGAN_SERVE_BS=None):  # main() sets its default
+        reset_launches(counters)
+        out = infer.main(argv)
+        launches, variants = launch_counts(counters)
+        serve_bs = os.environ["FCDGAN_SERVE_BS"]
+        n_chunks = len(serve_chunks(n_tiles, BATCH))
+        warm = infer.main(argv)  # same scene again, everything built and cached
+    want = derived_serve_launches(counters, _model_counts(torch, PATCH), n_chunks)
     density = open_raster(out["density_path"]).read_block()[..., 0]
     checks = {
         "density_exists": os.path.isfile(out["density_path"]),
@@ -899,21 +969,99 @@ def serve_phase(torch, work, smodel):
                                       and density.min() >= 0 and density.max() <= 1),
         "oa_f1_finite": all(isinstance(out.get(k), float) and math.isfinite(out[k])
                             for k in ("oa", "f1")),
+        "fused": out["fused"],
         "launches": launches == want,
-        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
+        "conv3x3_all_wgmma": all_wgmma(launches, variants),
     }
-    warm = infer.main(argv)  # same scene again, everything built and cached
     phase("serve", {"px_per_s": out["px_per_s"], "seconds": out["seconds"],
                     "warm_px_per_s": warm["px_per_s"], "warm_seconds": warm["seconds"],
-                    "pixels": out["pixels"], "chunks": n_chunks,
-                    "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
-                    "oa": out["oa"], "f1": out["f1"],
+                    "pixels": out["pixels"], "serve_bs": serve_bs, "tiles": n_tiles,
+                    "chunks": n_chunks, "launches": launches, "conv3x3_variants": variants,
+                    "derived_launches": want, "oa": out["oa"], "f1": out["f1"],
                     "auc": out["auc"], "density_mean": float(density.mean()),
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"serve checks failed: {checks}")
     return launches
+
+
+def serve_bs_phase(torch, work, smodel):
+    """The 2048² scene through tools.infer.run at FCDGAN_SERVE_BS 0 and 32,
+    twice each in turns: the densities within one bf16 step, launches from
+    each chunk plan. Returns the batch-exact density."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.device_cache import serve_chunks
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.tools import infer
+
+    counters = kernel_counters()
+    k = _model_counts(torch, PATCH)
+    n_tiles = math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2
+    res = {}
+    for bs in ("0", "32", "0", "32"):
+        with environ(FCDGAN_SERVE_BS=bs):
+            reset_launches(counters)
+            out = infer.run(infer.InferConfig(dir=work, smodel=smodel, ref_name="ref.tif",
+                                              batch_size=BATCH, ext=f"_bs{bs}", progress=False))
+            n_chunks = len(serve_chunks(n_tiles, BATCH))
+        launches, variants = launch_counts(counters)
+        r = res.setdefault(bs, {"px_per_s": [], "chunks": n_chunks, "launches": launches,
+                                "conv3x3_variants": variants,
+                                "derived_launches": derived_serve_launches(counters, k, n_chunks)})
+        r["px_per_s"].append(out["px_per_s"])
+        r["density"] = open_raster(out["density_path"]).read_block()[..., 0]
+    moved = res["0"]["density"] != res["32"]["density"]
+    diff = float(np.abs(res["0"]["density"] - res["32"]["density"]).max())
+    checks = {"density_diff_within_one_bf16_step": diff <= BF16_STEP}
+    for bs, r in res.items():
+        checks[f"launches_bs{bs}"] = r["launches"] == r["derived_launches"]
+        checks[f"conv3x3_all_wgmma_bs{bs}"] = all_wgmma(r["launches"], r["conv3x3_variants"])
+    phase("serve_bs", {"pixels": SCENE * SCENE, "max_abs_density_diff": diff, "tol": BF16_STEP,
+                       "share_of_pixels_moved": float(moved.mean()),
+                       **{f"bs{bs}": {key: v for key, v in r.items() if key != "density"}
+                          for bs, r in res.items()},
+                       "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_bs checks failed: {checks}")
+    return res["0"]["density"]
+
+
+def serve_stream_phase(torch, work, smodel, fused):
+    """The 2048² scene on the streaming path (host tiles, writer thread), bf16,
+    downloads in float32 and uint8, each twice: within 1e-3 (uint8: 1/510 +
+    1e-3) of the fused batch-exact density ``fused``, 3 conv3x3 and 4
+    phase_pool launches a batch."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.tools import infer
+
+    counters = kernel_counters()
+    batches = math.ceil(math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2 / BATCH)
+    want = derived_serve_launches(counters, _model_counts(torch, PATCH), batches)
+    res, checks = {}, {}
+    for dd, tol in (("float32", 1e-3), ("uint8", 1 / 510 + 1e-3)) * 2:
+        reset_launches(counters)
+        out = infer.run(infer.InferConfig(dir=work, smodel=smodel, ref_name="ref.tif",
+                                          batch_size=BATCH, device_feed="stream",
+                                          density_dtype=dd, ext=f"_stream_{dd}",
+                                          progress=False))
+        launches, variants = launch_counts(counters)
+        diff = float(np.abs(open_raster(out["density_path"]).read_block()[..., 0]
+                            - fused).max())
+        r = res.setdefault(dd, {"px_per_s": [], "max_abs_diff_to_fused": diff, "tol": tol,
+                                "launches": launches, "conv3x3_variants": variants})
+        r["px_per_s"].append(out["px_per_s"])
+        checks[f"{dd}_within_tol"] = diff <= tol and not out["fused"]
+        checks[f"{dd}_metrics_finite"] = all(math.isfinite(out[key]) for key in ("oa", "f1"))
+        checks[f"{dd}_launches"] = launches == want
+        checks[f"{dd}_conv3x3_all_wgmma"] = all_wgmma(launches, variants)
+    phase("serve_stream", {"pixels": SCENE * SCENE, "batches": batches,
+                           "derived_launches": want, **res, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_stream checks failed: {checks}")
 
 
 def parity_phase(torch, smodel, ds, gpu_cache):
@@ -977,8 +1125,7 @@ def train_phase(torch, work):
     t0 = time.perf_counter()
     out = demo_usss.main(argv)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    variants = dict(counters["conv3x3"].launches_by_variant)
+    launches, variants = launch_counts(counters)
     want, per_step = derived_launches(torch, out["tiles"])
     ev = out["evaluator"]
     density = open_raster(out["density_path"]).read_block()[..., 0]
@@ -998,7 +1145,7 @@ def train_phase(torch, work):
                                and density.min() >= 0 and density.max() <= 1),
         "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
         "launches": launches == want,
-        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
+        "conv3x3_all_wgmma": all_wgmma(launches, variants),
     }
     phase("train", {
         "seconds": seconds, "tiles": out["tiles"],
@@ -1143,8 +1290,7 @@ def wsss_phase(torch, work):
     t0 = time.perf_counter()
     out = demo_wsss.main(argv)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    variants = dict(counters["conv3x3"].launches_by_variant)
+    launches, variants = launch_counts(counters)
     want, per_step = derived_wsss_launches(torch)
     names = sorted(n for n in os.listdir(os.path.join(root, "before")) if n.endswith(".tif"))
     changed = [ln.split(",")[0] for ln in open(os.path.join(root, "label.txt")).read().split()
@@ -1174,7 +1320,7 @@ def wsss_phase(torch, work):
         "confusion_covers_changed": bool(
             ev.confusion_matrix.sum() == WSSS_SLICES[0] * WSSS_SIZE ** 2),
         "launches": launches == want,
-        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
+        "conv3x3_all_wgmma": all_wgmma(launches, variants),
     }
     phase("wsss", {
         "seconds": seconds, "pairs": pairs, "slice_px": WSSS_SIZE,
@@ -1189,7 +1335,7 @@ def wsss_phase(torch, work):
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"wsss checks failed: {checks}")
-    return launches, root
+    return launches, root, out
 
 
 def wsss_parity_phase(torch, root):
@@ -1305,8 +1451,7 @@ def rsss_phase(torch, work):
     t0 = time.perf_counter()
     out = demo_rsss.main(argv)
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    variants = dict(counters["conv3x3"].launches_by_variant)
+    launches, variants = launch_counts(counters)
     n_train, n_test = out["tiles"], out["test_tiles"]
     want, per_step = derived_rsss_launches(torch, n_train, n_test)
     rasters_ok = True
@@ -1347,7 +1492,7 @@ def rsss_phase(torch, work):
         "confusions_cover_test_interiors": bool(
             ev.confusion_matrix.sum() == test_px == test_ev.confusion_matrix.sum()),
         "launches": launches == want,
-        "conv3x3_all_wgmma": variants == {"wgmma": launches["conv3x3"], "fma_f32": 0},
+        "conv3x3_all_wgmma": all_wgmma(launches, variants),
     }
     phase("rsss", {
         "seconds": seconds, "tiles": n_train, "test_tiles": n_test, "tile_px": RSSS_PATCH,
@@ -1363,7 +1508,7 @@ def rsss_phase(torch, work):
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"rsss checks failed: {checks}")
-    return launches, root
+    return launches, root, out
 
 
 def _bn_stats(torch, *nets):
@@ -1501,6 +1646,117 @@ def rsss_parity_phase(torch, root):
                              f"{ssim_shapes}")
 
 
+def serve_whu_phase(torch, root, wsss):
+    """tools.infer --mode whu over the wsss phase's 150 changed slices with
+    its SModel, batch 15: in bn_mode train (S's statistics per batch through
+    channel_sums) the density images within one grey level of the demo's
+    own train-mode inference (same batches, train-mode BN ignores the
+    running buffers), then in eval mode; launches from the batches."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import read_image
+    from fcdgan_tpu_torch.tools import infer
+
+    dirs = dict(img_dir_x=os.path.join(root, "before"), img_dir_y=os.path.join(root, "after"),
+                ref_dir=os.path.join(root, "Label"), label_dir=root)
+    counters = kernel_counters()
+    k = _model_counts(torch, WSSS_SIZE)
+    batches = math.ceil(WSSS_SLICES[0] / WSSS_BATCH)
+    res, checks, total = {}, {}, collections.Counter()
+    for bn in ("train", "eval"):
+        reset_launches(counters)
+        out = infer.run(infer.InferConfig(mode="whu", smodel=wsss["smodel_path"], bn_mode=bn,
+                                          batch_size=WSSS_BATCH, progress=False,
+                                          outdir=os.path.join(root, f"serve_{bn}"), **dirs))
+        launches, variants = launch_counts(counters)
+        total.update(launches)
+        want = derived_serve_launches(counters, k, batches)
+        if bn == "train":
+            want["channel_sums"] = k["s_bns"] * batches
+        names = sorted(os.listdir(out["density_dir"]))
+        r = {"slices_per_s": out["slices_per_s"], "seconds": out["seconds"],
+             "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
+             **{key: out[key] for key in ("oa", "kappa", "f1", "miou")}}
+        checks[f"{bn}_slices"] = out["slices"] == len(names) == WSSS_SLICES[0]
+        checks[f"{bn}_launches"] = launches == want
+        checks[f"{bn}_conv3x3_all_wgmma"] = all_wgmma(launches, variants)
+        checks[f"{bn}_oa_miou_finite"] = all(math.isfinite(out[key]) for key in ("oa", "miou"))
+        if bn == "train":
+            levels = [np.abs(read_image(os.path.join(out["density_dir"], n)).astype(int)
+                             - read_image(os.path.join(wsss["density_dir"], n)).astype(int))
+                      for n in names]
+            r["max_grey_level_diff_to_demo"] = int(max(lv.max() for lv in levels))
+            r["byte_equal_to_demo"] = all(not lv.any() for lv in levels)
+            checks["train_within_one_grey_level_of_demo"] = r["max_grey_level_diff_to_demo"] <= 1
+        res[bn] = r
+    phase("serve_whu", {"slices": WSSS_SLICES[0], "batches": batches, **res, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_whu checks failed: {checks}")
+    return dict(total)
+
+
+def serve_oscd_phase(torch, root, rsss):
+    """tools.infer --mode oscd over all three OSCD scenes of the rsss phase
+    with its SModel, bf16, batch 12 at FCDGAN_SERVE_BS=0 (the chunks of the
+    demo's own inference): the fused per-scene path with two scenes in
+    flight, twice; a density and a color raster per scene, the test scene's
+    density within 1e-3 of the demo's, finite metrics, launches from the
+    chunk plan."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.device_cache import serve_chunks
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.tools import infer
+
+    scenes = [s for group in RSSS_SCENES for s in group]
+    with open(os.path.join(root, "all.txt"), "w") as f:
+        f.write(",".join(scenes) + "\n")
+    counters = kernel_counters()
+    n_tiles = math.ceil(RSSS_SCENE / (RSSS_PATCH - 2 * PAD)) ** 2
+    runs = []
+    for _ in range(2):
+        with environ(FCDGAN_SERVE_BS="0"):
+            reset_launches(counters)
+            out = infer.run(infer.InferConfig(
+                mode="oscd", dir=root, txt_name="all.txt", smodel=rsss["smodel_path"],
+                patch_size=(RSSS_PATCH, RSSS_PATCH), overlap_padding=(PAD, PAD),
+                batch_size=RSSS_BATCH, progress=False))
+            n_chunks = len(scenes) * len(serve_chunks(n_tiles, RSSS_BATCH))
+        runs.append((out, *launch_counts(counters)))
+    out, launches, variants = runs[0]
+    want = derived_serve_launches(counters, _model_counts(torch, RSSS_PATCH, RSSS_BANDS), n_chunks)
+
+    def raster(scene, name):
+        return open_raster(os.path.join(root, scene, "ImagePair", name)).read_block()[..., 0]
+
+    rasters_ok = True
+    for scene in scenes:
+        density, color = raster(scene, out["density_name"]), raster(scene, out["color_name"])
+        rasters_ok &= bool(density.shape == color.shape == (RSSS_SCENE, RSSS_SCENE)
+                           and np.isfinite(density).all()
+                           and density.min() >= 0 and density.max() <= 1
+                           and set(np.unique(color).tolist()) <= {0.0, 1.0, 2.0, 3.0})
+    test = RSSS_SCENES[1][0]
+    got, demo = raster(test, out["density_name"]), raster(test, rsss["density_name"])
+    diff = float(np.abs(got - demo).max())
+    checks = {"fused": out["fused"] and out["scenes"] == scenes, "rasters": rasters_ok,
+              "test_scene_within_1e-3_of_demo": diff <= 1e-3,
+              "metrics_finite": all(math.isfinite(out[key]) for key in ("oa", "kappa", "auc")),
+              "launches": all(r[1] == want for r in runs),
+              "conv3x3_all_wgmma": all(all_wgmma(r[1], r[2]) for r in runs)}
+    phase("serve_oscd", {"scenes": scenes, "pixels": out["pixels"],
+                         "px_per_s": [r[0]["px_per_s"] for r in runs],
+                         "seconds": [r[0]["seconds"] for r in runs], "chunks": n_chunks,
+                         "launches": launches, "conv3x3_variants": variants,
+                         "derived_launches": want, "test_scene_max_abs_diff_to_demo": diff,
+                         "test_scene_bit_equal_to_demo": bool(np.array_equal(got, demo)),
+                         **{key: out[key] for key in ("oa", "kappa", "f1", "auc")},
+                         "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_oscd checks failed: {checks}")
+    return launches
+
+
 def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
     main path's working type in ``step``, each row times its count per step
@@ -1558,17 +1814,21 @@ def main():
                                        (1700, 1600, 200, 260)))
         smodel, ds, gpu_cache = make_model(torch, work, scene)
         serve_launches = serve_phase(torch, work, smodel)
+        fused = serve_bs_phase(torch, work, smodel)
+        serve_stream_phase(torch, work, smodel, fused)
         parity_phase(torch, smodel, ds, gpu_cache)
-        del gpu_cache
+        del gpu_cache, fused
         torch.cuda.empty_cache()
         launches, tdir = train_phase(torch, work)
         train_parity_phase(torch, tdir)
         shutil.rmtree(tdir)
-        wsss_launches, wdir = wsss_phase(torch, work)
+        wsss_launches, wdir, wsss = wsss_phase(torch, work)
         wsss_parity_phase(torch, wdir)
+        serve_whu_launches = serve_whu_phase(torch, wdir, wsss)
         shutil.rmtree(wdir)
-        rsss_launches, rdir = rsss_phase(torch, work)
+        rsss_launches, rdir, rsss = rsss_phase(torch, work)
         rsss_parity_phase(torch, rdir)
+        serve_oscd_launches = serve_oscd_phase(torch, rdir, rsss)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1585,9 +1845,10 @@ def main():
                    "serve_chunk" if name == "conv3x3" else "usss_joint")
         r["wsss_launches"] = wsss_launches[name]
         r["rsss_launches"] = rsss_launches[name]
+        r["serve_launches"] = serve_launches[name]
+        r["serve_oscd_launches"] = serve_oscd_launches[name]
+        r["serve_whu_launches"] = serve_whu_launches[name]
         records.append(r)
-    for r in records:
-        r["serve_launches"] = serve_launches[r["name"]]
     summary = {"kernels": records, "card": smi,
                "conv3x3_per_step": conv_per_step(rows["conv3x3"]),
                "per_shape": [r for v in rows.values() for r in v],

@@ -64,7 +64,7 @@ constexpr int kSR = kTH + kMaxWin - 1;     // staged rows of a plane
 constexpr int kXPlane = kSR * kSW;         // floats of a staged channel plane
 constexpr int kVPlane = kTH * kSW;         // floats of an H-blurred channel plane
 constexpr int kMaxCB = 4;                  // channels staged at once
-constexpr int kMaxTickets = 1024;          // counters the wrapper keeps per stream
+constexpr int kMaxImages = 65535;          // images: the grid's y extent
 constexpr int kThreads = 256;              // kMaxCB x 64: H pass one column a thread,
 constexpr int kWarps = kThreads / 32;      // W pass 8 rows x 8 quads of columns
 // pixels of the staged region a thread loads
@@ -313,13 +313,13 @@ int launch(const float* x, const float* y, float* ssim_out, float* cs_out, float
 // Plain C interface for ctypes; returns the launch's cudaError_t (0 = ok).
 // Output tiles are TH x TW (TH <= 8, TW <= 32), tiles_x = ceil(VW / TW) per
 // row of tiles; ``partial`` is scratch of 2 * N * C * tiles floats;
-// ``counter`` holds N counters (one per image, N <= 1024) that are 0 and are
-// left at 0; ``taps`` holds K floats.
+// ``counter`` holds N counters (one per image, N <= 65535) that are 0 and
+// are left at 0; ``taps`` holds K floats.
 extern "C" int fcd_ssim_level_f32(const void* x, const void* y, void* ssim_out,
                                   void* cs_out, void* partial, void* counter, int N, int H,
                                   int W, int C, int K, int TH, int TW, const float* taps,
                                   float c1, float c2, void* stream) {
-  if (K < 1 || K > kMaxWin || H < K || W < K || N < 1 || N > kMaxTickets || C < 1 || TH < 1 ||
+  if (K < 1 || K > kMaxWin || H < K || W < K || N < 1 || N > kMaxImages || C < 1 || TH < 1 ||
       TH > kTH || TW < 1 || TW > kTW || counter == nullptr ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);

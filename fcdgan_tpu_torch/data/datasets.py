@@ -5,16 +5,17 @@ the port's drivers use:
 
   * ``ScenePairDataset`` (parity: GDALDataset, reference
     data_utils.py:28-236): numpy (h, w, nband) float32 tiles for the
-    statistics pass, the whole-scene density write of the fused serving
-    path and the per-tile stitched write of RSSS. Normalisation
+    statistics pass and the streaming serving path, the whole-scene density
+    write of the fused serving path and the per-tile stitched writes, of a
+    patch-sized tile or one cropped to its interior on the device. Normalisation
     (``enhance``) applies to the raw read window *before* zero padding,
     exactly like the reference (data_utils.py:110-120), so the canvas
     padding stays zero.
   * ``RegionScenePairDataset`` (GDALDataset_RSS, data_utils.py:239-290) and
     ``OSCDDataset`` (OSCD_Dataset_RSS, data_utils.py:294-446): the RSSS
     scene lists, each scene with its own normalizer, a coarse region raster
-    beside the reference, and per-(filter, scene) output rasters. The
-    whole-scene write of the ``oscd`` serving mode is not ported.
+    beside the reference, and per-(filter, scene) output rasters, written
+    tile by tile or a whole scene at once (the ``oscd`` serving mode).
   * ``WHUDataset`` (parity: WHU_Dataset, data_utils.py:449-563) and
     ``WHUPairDataset`` (WHU_Dataset_WSS, data_utils.py:570-625): the slice
     lists selected through ``label.txt``, the changed slices' references
@@ -93,33 +94,62 @@ class ScenePairDataset:
             ref[write[1]: write[1] + write[3], write[0]: write[0] + write[2], :] = r
         return x, y, item, ref
 
-    def write(self, out_image: np.ndarray, item: int, out_raster) -> None:
-        """Write the interior of tile ``item`` of an (h, w) or (h, w, bands)
-        canvas into ``out_raster`` at its core (parity: GDALwrite,
-        data_utils.py:215-236)."""
-        if out_image.ndim == 2:
-            out_image = out_image[..., None]
-        if out_image.shape[-1] != out_raster.nband:
-            raise ValueError("The band of output image doesn't match the output raster")
-        core, _, _ = self.grid.slices(item)
-        padx, pady = self.overlap_padding
-        interior = out_image[pady: pady + core[3], padx: padx + core[2], :]
-        if interior.shape[-1] == 1:
-            out_raster.write_block(interior[..., 0], core[0], core[1], band=0)
-        else:
-            out_raster.write_block(interior, core[0], core[1])
-
-    def write_full(self, density: np.ndarray):
-        """Write the whole stitched (ysize, xsize) density raster in one call,
-        with the geo metadata copied from image X (data_utils.py:190-198)."""
+    def _density_out(self):
+        """The float32 density raster at ``out_path``, created at first use
+        with image X's geo metadata (data_utils.py:190-198)."""
         if self._out is None:
             if self.out_path is None:
                 raise ValueError("ScenePairDataset was built without an out_path")
             xs, ys, _ = self.size()
             self._out = create_raster(self.out_path, xs, ys, 1, np.float32,
                                       like=self.raster_x)
+        return self._out
+
+    def write_default(self, out_image: np.ndarray, item: int) -> None:
+        """Stitch one tile's density into the ``out_path`` raster (parity:
+        GDALwriteDefault, data_utils.py:178-213; JAX datasets.py:113-123)."""
+        self._write_interior(self._density_out(), out_image, item)
+
+    def write(self, out_image: np.ndarray, item: int, out_raster=None) -> None:
+        """Write the interior of tile ``item`` of an (h, w) or (h, w, bands)
+        canvas into ``out_raster`` at its core, or into the density raster
+        when it is None (parity: GDALwrite, data_utils.py:215-236)."""
+        if out_raster is None:
+            self.write_default(out_image, item)
+            return
+        if out_image.ndim == 2:
+            out_image = out_image[..., None]
+        if out_image.shape[-1] != out_raster.nband:
+            raise ValueError("The band of output image doesn't match the output raster")
+        self._write_interior(out_raster, out_image, item)
+
+    def _write_interior(self, raster, out_image: np.ndarray, item: int) -> None:
+        """A tile canvas (patch-sized), or one already cropped to its
+        ``patch - 2 * padding`` interior on the device (JAX datasets.py:
+        139-156), written at the tile's core."""
+        if out_image.ndim == 2:
+            out_image = out_image[..., None]
+        core, _, _ = self.grid.slices(item)
+        padx, pady = self.overlap_padding
+        ph, pw = self.patch_size[1], self.patch_size[0]
+        if out_image.shape[:2] == (ph - 2 * pady, pw - 2 * padx):
+            interior = out_image[:core[3], :core[2], :]
+        else:
+            interior = out_image[pady: pady + core[3], padx: padx + core[2], :]
+        if interior.shape[-1] == 1:
+            raster.write_block(interior[..., 0], core[0], core[1], band=0)
+        else:
+            raster.write_block(interior, core[0], core[1])
+
+    def write_full(self, density: np.ndarray):
+        """Write the whole stitched (ysize, xsize) density raster in one call,
+        with the geo metadata copied from image X (data_utils.py:190-198)."""
         d = density[..., 0] if density.ndim == 3 else density
-        self._out.write_block(d.astype(np.float32), 0, 0, band=0)
+        self._density_out().write_block(d.astype(np.float32), 0, 0, band=0)
+
+    def interior_sizes(self) -> np.ndarray:
+        """(n_tiles, 2) core (h, w) per item."""
+        return self.grid.interior_sizes()
 
     def close_outputs(self):
         if self._out is not None:
@@ -244,21 +274,38 @@ class OSCDDataset:
         """The scenes' (core_h, core_w) rows, indexed by global item."""
         return np.concatenate([d.ds.grid.interior_sizes() for d in self.dslist])
 
-    def write(self, out_image: np.ndarray, item: int, filter_name: str) -> None:
-        """Stitch a tile into the float32 raster ``{scene}/ImagePair/{filter_name}``
-        created at first use with image X's geo metadata (parity: GDALwrite,
-        data_utils.py:408-446)."""
-        ds_idx, cur = self._locate(item)
-        if out_image.ndim == 2:
-            out_image = out_image[..., None]
+    def _writer(self, ds_idx: int, filter_name: str, nband: int):
+        """The float32 raster ``{scene}/ImagePair/{filter_name}`` of scene
+        ``ds_idx``, created at first use with image X's geo metadata."""
         key = (filter_name, ds_idx)
         if key not in self._writers:
             base = self.dslist[ds_idx].ds
             xs, ys, _ = base.size()
             path = os.path.join(self.img_dir, self.namelist[ds_idx], "ImagePair", filter_name)
-            self._writers[key] = create_raster(path, xs, ys, out_image.shape[-1], np.float32,
+            self._writers[key] = create_raster(path, xs, ys, nband, np.float32,
                                                like=base.raster_x)
-        self.dslist[ds_idx].ds.write(out_image, cur, self._writers[key])
+        return self._writers[key]
+
+    def write(self, out_image: np.ndarray, item: int, filter_name: str) -> None:
+        """Stitch a tile (patch-sized or cropped to its interior) into its
+        scene's ``filter_name`` raster (parity: GDALwrite,
+        data_utils.py:408-446)."""
+        ds_idx, cur = self._locate(item)
+        if out_image.ndim == 2:
+            out_image = out_image[..., None]
+        writer = self._writer(ds_idx, filter_name, out_image.shape[-1])
+        self.dslist[ds_idx].ds.write(out_image, cur, writer)
+
+    def write_full_scene(self, ds_idx: int, array: np.ndarray, filter_name: str) -> None:
+        """Write one whole (ysize, xsize[, bands]) scene raster of a filter in
+        one call (the fused serving path; JAX datasets.py:338-358)."""
+        if array.ndim == 2:
+            array = array[..., None]
+        writer = self._writer(ds_idx, filter_name, array.shape[-1])
+        if array.shape[-1] == 1:
+            writer.write_block(array[..., 0].astype(np.float32), 0, 0, band=0)
+        else:
+            writer.write_block(array.astype(np.float32), 0, 0)
 
     def close_outputs(self) -> None:
         for w in self._writers.values():

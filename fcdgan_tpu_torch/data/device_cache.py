@@ -10,16 +10,18 @@ tile's write window. Training batches are (item, weight) index pairs from
 ``IndexBatchLoader`` (``loader``), turned into device tiles by ``complete``.
 For serving, per chunk of tiles the Segmentor runs, each tile's
 stride-sized interior is cropped and written into a device canvas, and the
-finished raster is downloaded once.
+finished raster is quantized to the download type and downloaded once
+(``stitched_density``, or ``stitched_density_start`` / ``_finish`` for a
+caller that overlaps scenes).
 
-Chunks are batch-exact: ``ceil(n / batch_size)`` chunks of ``batch_size``
-tiles, the last one wrap-padded with the first tiles again (their interiors
-are re-written with identical values). A raster is held in its stored type
-when that is an integer of at most 2 bytes (uint8, uint16, int16, ...) and
-in float32 otherwise, and cast to float32 at gather time (``prep``,
-device_cache.py:263-272). ``fits()`` budgets those bytes against
-``FCDGAN_SCENE_CACHE_MAX_MB`` (default 4096, :331-342); scenes past it need
-the rolling-window cache, which is not ported yet.
+Chunks come from ``serve_chunks``: batch-exact unless ``FCDGAN_SERVE_BS``
+widens them, the last one wrap-padded with the first tiles again. A raster
+is held in its stored type when that is an integer of at most 2 bytes
+(uint8, uint16, int16, ...) and in float32 otherwise, and cast to float32
+at gather time (``prep``, device_cache.py:263-272). ``fits()`` budgets
+those bytes against ``FCDGAN_SCENE_CACHE_MAX_MB`` (default 4096,
+:331-342); ``supports()`` adds the enhance rule, and callers stream a scene
+it refuses (the rolling-window cache of the JAX package is not ported yet).
 
 ``DeviceWHUCache`` is the counterpart of the JAX ``DeviceWHUCache``
 (:1154-1307): the raw changed and unchanged slice stacks and the binarized
@@ -42,45 +44,33 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.download import Download, dequantize, quantize
 from .normalize import Normalize
+from .pipeline import Batch, BatchLoader
 
 # bytes the resident raw WHU slice stacks may take on the device, in their
 # stored type (the JAX default of FCDGAN_SLICE_CACHE_MAX_MB, :1253)
 SLICE_CACHE_MAX_BYTES = 4096 * 10**6
 
 
-class IndexBatchLoader:
-    """Epoch iterator of (item, weight) batches (JAX ``IndexBatchLoader``
-    with the order logic of its base ``BatchLoader``, pipeline.py:41-107):
+class IndexBatchLoader(BatchLoader):
+    """Epoch iterator of (item, weight) batches (JAX ``IndexBatchLoader``,
+    device_cache.py:33-45, over the order logic of ``pipeline.BatchLoader``):
     a seeded numpy shuffle of ``n_items`` ids per epoch, so the same seed
     gives the JAX package's batch order, and the last partial batch at its
-    true size (the reference's ``drop_last=False``, JAX ``tail='short'``).
-    ``epoch_hook(epoch)`` runs at the start of each epoch, before the
-    shuffle (pipeline.py:86-95). The wrap-padded tail (``tail='pad'``) is
-    not ported."""
+    true size (the reference's ``drop_last=False``, ``tail='short'``) or
+    wrap-padded with weight 0 (``tail='pad'``). ``epoch_hook(epoch)`` runs
+    at the start of each epoch, before the shuffle."""
 
     def __init__(self, n_items: int, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, epoch_hook: Optional[Callable[[int], None]] = None):
-        self.n = n_items
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self._rng = np.random.default_rng(seed)
-        self._epoch = 0
-        self._epoch_hook = epoch_hook
-
-    def __len__(self) -> int:
-        return -(-self.n // self.batch_size)
+                 seed: int = 0, epoch_hook: Optional[Callable[[int], None]] = None,
+                 tail: str = "short"):
+        super().__init__(range(n_items), batch_size, fields=("item",), shuffle=shuffle,
+                         seed=seed, epoch_hook=epoch_hook, tail=tail)
 
     def __iter__(self):
-        if self._epoch_hook is not None:
-            self._epoch_hook(self._epoch)
-        order = np.arange(self.n)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        self._epoch += 1
-        for start in range(0, self.n, self.batch_size):
-            idx = order[start:start + self.batch_size]
-            yield {"item": idx.astype(np.int64), "weight": np.ones(len(idx), np.float32)}
+        for idx, weight in self._index_batches():
+            yield Batch(item=idx.astype(np.int64), weight=weight)
 
 
 class IndexPairBatchLoader(IndexBatchLoader):
@@ -129,9 +119,14 @@ def _take(t: torch.Tensor, *index) -> torch.Tensor:
 
 
 def serve_chunks(n: int, bs: int) -> np.ndarray:
-    """(n_chunks, bs_eff) tile ids, wrap-padded (device_cache.py:991-1009
-    with ``FCDGAN_SERVE_BS`` unset)."""
-    bs_eff = min(bs, n)
+    """(n_chunks, bs_eff) tile ids of the fused serving pass, wrap-padded
+    (JAX ``DeviceSceneWindowCache._serve_chunks``, device_cache.py:991-1009):
+    ``ceil(n / bs_eff)`` chunks, the last one filled up with the first tiles
+    again (their interiors are re-written with identical values).
+    ``FCDGAN_SERVE_BS`` above 0 widens the chunk to ``min(max(bs, cap), n)``
+    tiles; unset or 0 keeps it batch-exact, ``min(bs, n)``."""
+    cap = int(os.environ.get("FCDGAN_SERVE_BS", "0"))
+    bs_eff = min(max(bs, cap), n) if cap > 0 else min(bs, n)
     nc = -(-n // bs_eff)
     return np.resize(np.arange(n, dtype=np.int64), nc * bs_eff).reshape(nc, bs_eff)
 
@@ -144,10 +139,12 @@ class DeviceSceneCache:
             raise NotImplementedError(
                 f"the scene takes {self.scene_bytes(dataset) / 1e6:.0f} MB on the device, "
                 "past FCDGAN_SCENE_CACHE_MAX_MB "
-                f"({_budget_mb('FCDGAN_SCENE_CACHE_MAX_MB'):g} MB); rolling-window serving "
-                "(DeviceSceneWindowCache) is not ported yet (ROADMAP.md, queue A)")
-        if not isinstance(normalize, Normalize):
-            raise ValueError("DeviceSceneCache needs a Normalize enhance")
+                f"({_budget_mb('FCDGAN_SCENE_CACHE_MAX_MB'):g} MB): serve it through the "
+                "streaming path (tools.infer --device-feed stream, which --device-feed auto "
+                "takes for it); the rolling-window cache (DeviceSceneWindowCache) is not "
+                "ported yet (ROADMAP.md, A.3)")
+        if normalize is not None and not isinstance(normalize, Normalize):
+            raise ValueError("DeviceSceneCache needs a Normalize enhance (or none)")
         grid = dataset.grid
         self.grid = grid
         self.device = torch.device(device)
@@ -170,9 +167,22 @@ class DeviceSceneCache:
         self._wins = torch.from_numpy(grid.write_windows().astype(np.int64)).to(self.device)
         self.scene_hw = (dataset.raster_x.ysize, dataset.raster_x.xsize)
         self.n_tiles = len(dataset)
-        stats = (normalize.meansX, normalize.stdX, normalize.meansY, normalize.stdY)
-        self._norm = [torch.tensor(s[:nband], dtype=torch.float32, device=self.device)
+        if normalize is None:  # identity, as the JAX cache without an enhance
+            stats = (np.zeros(nband), np.ones(nband), np.zeros(nband), np.ones(nband))
+        else:
+            stats = (normalize.meansX, normalize.stdX, normalize.meansY, normalize.stdY)
+        self._norm = [torch.tensor(np.asarray(s[:nband], np.float32), device=self.device)
                       for s in stats]
+
+    @staticmethod
+    def supports(dataset) -> bool:
+        """Whether ``dataset`` can be served from a resident scene
+        (device_cache.py:318-329): a ``Normalize`` enhance or none (the
+        port's scene datasets take no sync transforms) and ``fits``.
+        Callers test it and stream the scene otherwise."""
+        enhance = dataset.enhance
+        return (enhance is None or isinstance(enhance, Normalize)) and \
+            DeviceSceneCache.fits(dataset)
 
     @staticmethod
     def scene_bytes(dataset) -> int:
@@ -237,9 +247,17 @@ class DeviceSceneCache:
         return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed)
 
     @torch.no_grad()
-    def stitched_density(self, model, batch_size: int = 10) -> np.ndarray:
-        """Whole-scene (ysize, xsize) float32 density: one device canvas,
-        disjoint interior writes, one download (device_cache.py:125-154)."""
+    def stitched_density_start(self, model, batch_size: int = 10,
+                               density_dtype: str = "float32") -> Download:
+        """Queue the whole-scene density and its download; return at once.
+
+        Per ``serve_chunks`` chunk the Segmentor runs on the gathered tiles
+        and each tile's stride-sized interior is written into one device
+        canvas (disjoint writes; the ``run`` body, device_cache.py:125-154);
+        the (ysize, xsize) canvas is quantized to ``density_dtype`` and
+        copied ``non_blocking`` into pinned host memory behind a recorded
+        event. A caller with several scenes starts the next one before it
+        finishes this one (tools/infer.py ``run_oscd``)."""
         ph, pw = self.grid.canvas_shape()
         padx, pady = self.grid.overlap_padding
         sy, sx = ph - 2 * pady, pw - 2 * padx
@@ -254,7 +272,19 @@ class DeviceSceneCache:
                 r0, c0 = self.origins[item]
                 canvas[r0:r0 + sy, c0:c0 + sx] = core[j]
         hs, ws = self.scene_hw
-        return canvas[:hs, :ws].cpu().numpy()
+        return Download(quantize(canvas[:hs, :ws], density_dtype))
+
+    @staticmethod
+    def stitched_density_finish(handle: Download, density_dtype: str = "float32") -> np.ndarray:
+        """Wait for a ``stitched_density_start`` download: the float32
+        (ysize, xsize) host density (uint8 dequantized by / 255)."""
+        return dequantize(handle.result(), density_dtype)
+
+    def stitched_density(self, model, batch_size: int = 10,
+                         density_dtype: str = "float32") -> np.ndarray:
+        """Whole-scene float32 density: start, then finish."""
+        return self.stitched_density_finish(
+            self.stitched_density_start(model, batch_size, density_dtype), density_dtype)
 
 
 class DeviceWHUCache:

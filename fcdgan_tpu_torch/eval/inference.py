@@ -1,34 +1,218 @@
-"""Stitched full-scene inference, fused path (JAX ``eval/inference.py``).
+"""Stitched full-scene inference: the fused resident path and the streaming
+path, whose device compute overlaps the host's writes.
 
-``stitched_inference`` keeps the scene pair resident on the device, runs
-the eval Segmentor over every tile in batch-exact chunks, stitches the tile
-interiors into one device canvas, downloads it once and writes the density
-raster. The per-batch streaming path of the JAX package is not ported.
+Port of the JAX package's ``eval/inference.py`` (:27-307) on one device:
+
+  * ``cropped_infer`` trims each tile's overlap halo on the device before
+    the download (the stitched writes read the interior only).
+  * ``quantized_infer`` returns ``(fn, dequant)``: ``fn`` gives the density
+    in its download type (``utils.download``: float32, uint8 or bfloat16),
+    ``dequant`` turns a downloaded one back into a float32 array.
+  * ``run_overlapped`` runs ``compute`` on the caller's thread and
+    ``process`` on a writer thread behind a bounded queue.
+  * ``stitched_inference`` serves one ``ScenePairDataset`` through the
+    device feed ``auto`` (the fused resident pass when
+    ``DeviceSceneCache.supports`` the scene), ``cache`` (per-batch gathers
+    from the resident scene) or ``stream`` (host tiles from ``BatchLoader``,
+    optionally uploaded in ``transfer_dtype``). Where the JAX ``auto`` feed
+    takes the rolling-window cache (a scene past the budget), the port
+    streams until that cache is ported (ROADMAP.md, A.3).
+
+Models here are NHWC functions ``infer(x, y) -> (B, h, w, 1)`` float32
+(``nhwc_infer`` wraps the NCHW Segmentor).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..data.device_cache import DeviceSceneCache
+from ..data.pipeline import BatchLoader, prefetch
+from ..utils.download import Download, check_density_dtype, dequantize, quantize
 
 
-def stitched_inference(dataset, model, batch_size: int, device) -> dict:
-    """Density of ``dataset``'s scene through ``model`` (eval, on ``device``),
-    written via ``dataset.write_full``. Returns {"density", "pixels",
-    "seconds", "px_per_s"}; as in the JAX package, seconds start after the
-    scene upload and span the device pass, the download and the raster
-    write."""
+def nhwc_infer(model) -> Callable:
+    """The NCHW Segmentor as an NHWC ``infer(x, y)`` -> (B, H, W, 1)."""
+    def infer(x, y):
+        return model(x.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    return infer
+
+
+def cropped_infer(infer: Callable, overlap_padding, patch_size) -> Callable:
+    """``infer`` with each tile's halo cut on the device (JAX
+    inference.py:27-57): (B, ph - 2 pady, pw - 2 padx, 1), the shape that
+    ``ScenePairDataset.write`` recognises as already cropped."""
+    padx, pady = overlap_padding
+    pw, ph = patch_size
+    if padx == 0 and pady == 0:
+        return infer
+
+    def crop(x, y):
+        return infer(x, y)[:, pady:ph - pady, padx:pw - padx]
+
+    return crop
+
+
+def quantized_infer(infer: Callable, density_dtype: str = "float32"):
+    """``(fn, dequant)`` (JAX inference.py:60-97): ``fn`` quantizes the
+    density on the device for its download, ``dequant(t)`` gives the float32
+    host array of a downloaded (or device) result."""
+    check_density_dtype(density_dtype)
+
+    def dequant(t: torch.Tensor) -> np.ndarray:
+        return dequantize(t.cpu(), density_dtype)
+
+    if density_dtype == "float32":
+        return infer, dequant
+    return (lambda x, y: quantize(infer(x, y), density_dtype)), dequant
+
+
+def run_overlapped(batches, compute: Callable, process: Callable, depth: int = 4) -> None:
+    """Overlap device compute with per-batch host work (JAX
+    inference.py:99-160, without its multi-host branch).
+
+    ``compute(batch)`` runs on the caller's thread and queues device work;
+    ``process(out, batch)`` runs on a writer thread, behind a queue of at
+    most ``depth`` batches. PyTorch's current CUDA stream is per thread, so
+    ``compute`` hands over ``utils.download.Download`` objects, whose
+    ``result()`` waits on an event recorded behind the copy, never a device
+    tensor that the producer's stream may still be writing. An error in
+    ``process`` stops the producer at its next batch, the queued jobs are
+    drained unprocessed, and the error is raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err = []
+
+    def writer():
+        while True:
+            job = q.get()
+            if job is sentinel:
+                return
+            if not err:
+                try:
+                    process(*job)
+                except BaseException as e:  # re-raised on the caller's thread
+                    err.append(e)
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    try:
+        for batch in batches:
+            if err:  # no device time for batches nobody will process
+                break
+            q.put((compute(batch), batch))
+    finally:
+        q.put(sentinel)
+        wt.join()
+    if err:
+        raise err[0]
+
+
+_TRANSFER = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
+def transfer_type(name: str) -> Optional[torch.dtype]:
+    """The upload type of ``--transfer-dtype`` (``""``: as the loader gives)."""
+    if not name:
+        return None
+    if name not in _TRANSFER:
+        raise ValueError(f"transfer_dtype must be one of {sorted(_TRANSFER)} or empty, "
+                         f"not {name!r}")
+    return _TRANSFER[name]
+
+
+def upload(a: np.ndarray, device: torch.device,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host batch array on ``device`` (in ``dtype`` when given, cast on the
+    host): to a card through pinned memory with a ``non_blocking`` copy, so
+    the host does not wait for the work queued before it."""
+    t = torch.from_numpy(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@torch.no_grad()
+def stitched_inference(dataset, model, batch_size: int, device, device_feed: str = "auto",
+                       density_dtype: str = "float32",
+                       transfer_dtype: Optional[torch.dtype] = None,
+                       prefetch_depth: int = 2, writer_depth: int = 4,
+                       on_tile: Optional[Callable[[int, np.ndarray], None]] = None) -> dict:
+    """Density of ``dataset``'s scene through the eval-mode ``model`` on
+    ``device``, written through the dataset's density raster (JAX
+    inference.py:163-307).
+
+    Returns {"density", "pixels", "seconds", "px_per_s", "fused"}:
+    ``density`` is the whole float32 raster on the fused path and None on
+    the others. ``transfer_dtype`` is the upload type of streamed host
+    tiles (the JAX tool's ``--transfer-dtype``, inference.py:263-268); the
+    resident feeds upload the raw scene once. On the per-batch paths
+    ``on_tile(item, d)``, when given,
+    gets each real tile's (core_h, core_w) float32 interior on the writer
+    thread. As in the JAX package the fused seconds start after the scene
+    upload; the per-batch ones span the whole pass."""
+    if device_feed not in ("auto", "cache", "stream"):
+        raise ValueError(f"device_feed must be auto, cache or stream, not {device_feed!r}")
     device = torch.device(device)
-    cache = DeviceSceneCache(dataset, dataset.enhance, device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if device_feed == "auto" and DeviceSceneCache.supports(dataset):
+        cache = DeviceSceneCache(dataset, dataset.enhance, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        density = cache.stitched_density(model, batch_size, density_dtype)
+        dataset.write_full(density)
+        dataset.close_outputs()
+        seconds = time.perf_counter() - t0
+        return {"density": density, "pixels": int(density.size), "seconds": seconds,
+                "px_per_s": density.size / max(seconds, 1e-9), "fused": True}
+
+    infer, dequant = quantized_infer(
+        cropped_infer(nhwc_infer(model), dataset.overlap_padding, dataset.patch_size),
+        density_dtype)
+    cache = None
+    if device_feed != "stream" and DeviceSceneCache.supports(dataset):
+        cache = DeviceSceneCache(dataset, dataset.enhance, device)
+        loader = cache.loader(batch_size)
+    else:
+        loader = BatchLoader(dataset, batch_size, fields=("x", "y", "item"), shuffle=False)
+    interior = dataset.interior_sizes()
+    pixels = 0
     t0 = time.perf_counter()
-    density = cache.stitched_density(model, batch_size=batch_size)
-    dataset.write_full(density)
+
+    def compute(batch):
+        nonlocal pixels
+        if cache is not None:
+            db = cache.complete(batch)
+            bx, by = db["x"], db["y"]
+        else:
+            bx = upload(batch["x"], device, transfer_dtype)
+            by = upload(batch["y"], device, transfer_dtype)
+        pixels += int(sum(np.prod(interior[int(i)]) for i, w in
+                          zip(batch["item"], batch["weight"]) if w > 0))
+        return Download(infer(bx, by))
+
+    def process(dl: Download, batch):
+        cmap = dequant(dl.result())
+        for ns, (item, w) in enumerate(zip(batch["item"], batch["weight"])):
+            if w == 0:
+                continue
+            dataset.write_default(cmap[ns], int(item))
+            if on_tile is not None:
+                ch, cw = interior[int(item)]
+                on_tile(int(item), cmap[ns, :ch, :cw, 0])
+
+    run_overlapped(prefetch(iter(loader), prefetch_depth), compute, process,
+                   depth=writer_depth)
     seconds = time.perf_counter() - t0
-    pixels = int(density.size)
-    return {"density": density, "pixels": pixels, "seconds": seconds,
-            "px_per_s": pixels / max(seconds, 1e-9)}
+    dataset.close_outputs()
+    return {"density": None, "pixels": pixels, "seconds": seconds,
+            "px_per_s": pixels / max(seconds, 1e-9), "fused": False}

@@ -27,12 +27,13 @@ import numpy as np
 import torch
 
 from .ssim import _ssim_maps, gaussian_window
-from .tickets import MAX_TICKETS, sm_count, stream_and_counter
+from .tickets import sm_count, stream_and_counter
 
 SOURCE = "fused_ssim"
 TILE_W = 32          # output columns of a tile (kTW)
 TILE_HEIGHTS = (8, 4, 2, 1)  # output rows of a tile, the largest that fills the card
 MAX_WIN = 11         # largest window the kernel takes (kMaxWin)
+MAX_IMAGES = 65535   # images of a level: the grid's y extent (kMaxImages)
 
 
 def ssim_level_plain(x, y, data_range=1.0, win_size=11, win_sigma=1.5,
@@ -104,8 +105,8 @@ def _launch(x, y, data_range, win_size, win_sigma, k1, k2):
         raise ValueError(f"the fused_ssim kernel takes win_size <= {MAX_WIN}, "
                          f"not {win_size}")
     n, h, w, c = x.shape
-    if n > MAX_TICKETS:
-        raise ValueError(f"ssim_level: the kernel takes at most {MAX_TICKETS} images, "
+    if n > MAX_IMAGES:
+        raise ValueError(f"ssim_level: the kernel's grid takes at most {MAX_IMAGES} images, "
                          f"not {n}")
     if not x.is_contiguous():
         x = x.contiguous()
@@ -117,7 +118,7 @@ def _launch(x, y, data_range, win_size, win_sigma, k1, k2):
     # the two (N, C) tables, then the per-tile partial sums: one allocation
     buf = torch.empty(2 * n * c * (1 + tiles), dtype=torch.float32, device=dev)
     c1, c2 = _constants(data_range, k1, k2)
-    stream, counter = stream_and_counter(dev)
+    stream, counter = stream_and_counter(dev, n)  # one ticket counter per image
     ptr = buf.data_ptr()
     status = _kernel()(x.data_ptr(), y.data_ptr(), ptr, ptr + 4 * n * c, ptr + 8 * n * c,
                        counter, n, h, w, c, win_size, plan.th, plan.tw,

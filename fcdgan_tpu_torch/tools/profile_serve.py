@@ -10,9 +10,13 @@ profiled pass, and device time by kernel name (top ``--top``) and by coarse
 group (the conv3x3 kernel, other convolutions, elementwise/BN,
 pooling/upsampling, gather/copy).
 
+The chunks are those of ``data/device_cache.serve_chunks``: batch-exact,
+or ``FCDGAN_SERVE_BS`` wide when that is set above 0.
+
 Run on a machine with a CUDA card, from the repository root:
 
-    python -m fcdgan_tpu_torch.tools.profile_serve [--scene 2048] [--batch-size 10]
+    [FCDGAN_SERVE_BS=32] python -m fcdgan_tpu_torch.tools.profile_serve \
+        [--scene 2048] [--batch-size 10]
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ def main(argv=None):
     from torch.profiler import ProfilerActivity, profile
 
     from ..data.datasets import ScenePairDataset
-    from ..data.device_cache import DeviceSceneCache
+    from ..data.device_cache import DeviceSceneCache, serve_chunks
     from ..data.normalize import Normalize
     from ..data.stats import dataset_meanstd
     from ..data.synthetic import make_usss_scene
@@ -123,7 +127,8 @@ def main(argv=None):
 
     print(json.dumps({
         "device": torch.cuda.get_device_name(device), "scene": args.scene,
-        "batch_size": args.batch_size, "chunks": -(-len(ds) // args.batch_size),
+        "batch_size": args.batch_size, "serve_bs": os.environ.get("FCDGAN_SERVE_BS", ""),
+        "chunks": len(serve_chunks(len(ds), args.batch_size)),
         "tool_px_per_s": out["px_per_s"], "tool_seconds": out["seconds"],
         "upload_ms": upload_ms, "pass_ms_unprofiled": unprofiled * 1e3,
         "pass_ms_profiled": wall * 1e3, **device_summary(prof, wall, top=args.top),

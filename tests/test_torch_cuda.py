@@ -5,6 +5,8 @@ so on a machine without it run:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -533,3 +535,131 @@ def test_pools_at_rsss_vgg_batch(shape, dtype):
     assert (phase_pool.launches, pool_bwd.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(fwd, phase_pool_plain(x))
     assert torch.equal(bwd, pool_bwd_plain(x, dy))
+
+
+@pytest.mark.cuda
+def test_fused_ssim_past_1024_images():
+    """A level of 1100 images (more than the 1024 ticket counters a stream
+    starts with): the counter array grows, the result stays within 2e-5 of
+    the plain composite, and a warm call is one device launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcdgan_tpu_torch.ops.fused_ssim import ssim_level, ssim_level_plain
+
+    xt, yt = _ssim_on_card((1100, 16, 16, 3), seed=14)
+    before = ssim_level.launches
+    got = [t.clone() for t in ssim_level(xt, yt, 1.0)]
+    torch.cuda.synchronize()
+    assert ssim_level.launches == before + 1
+    for g, w in zip(got, ssim_level_plain(xt, yt, 1.0)):
+        assert g.shape == (1100, 3)
+        assert (g - w).abs().max().item() <= 2e-5
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = ssim_level(xt, yt, 1.0)
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)]
+        if names:
+            break
+    assert len(names) == 1, names
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    small = ssim_level(xt[:7], yt[:7], 1.0)  # the grown array serves smaller levels
+    for g, w in zip(small, ssim_level_plain(xt[:7], yt[:7], 1.0)):
+        assert (g - w).abs().max().item() <= 2e-5
+
+
+def _served_scene(tmp_path, device):
+    """A small scene's resident cache and a seeded f32 Segmentor on ``device``."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.data.synthetic import make_usss_scene
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+
+    d = str(tmp_path)
+    if not os.path.exists(os.path.join(d, "T1.tif")):
+        make_usss_scene(d, 150, 130, 3, seed=5, dtype="uint16")
+    stats_ds = ScenePairDataset(os.path.join(d, "T1.tif"), os.path.join(d, "T2.tif"),
+                                patch_size=(64, 64), overlap_padding=(0, 0))
+    scaler = Normalize(*dataset_meanstd(os.path.join(d, "T1_stats.txt"),
+                                        os.path.join(d, "T2_stats.txt"), stats_ds))
+    ds = ScenePairDataset(os.path.join(d, "T1.tif"), os.path.join(d, "T2.tif"),
+                          enhance=scaler, patch_size=(64, 64), overlap_padding=(6, 6))
+    torch.manual_seed(0)
+    net = Segmentor(3).eval()
+    with torch.no_grad():
+        net.outc.conv.weight.mul_(50.0)
+    return DeviceSceneCache(ds, scaler, device), net.to(device)
+
+
+@pytest.mark.cuda
+def test_quantized_canvas_on_the_card(tmp_path):
+    """The canvas quantizer on the card gives the CPU's codes for the same
+    density, and the card's uint8 / bfloat16 scene densities are within one
+    quantization step of its float32 one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.utils.download import quantize
+
+    torch.backends.cudnn.allow_tf32 = False
+    d = torch.rand(257, 263, device="cuda") * 1.2 - 0.1
+    for dt in ("uint8", "bfloat16"):
+        assert torch.equal(quantize(d, dt).cpu(), quantize(d.cpu(), dt))
+    cache, net = _served_scene(tmp_path, "cuda")
+    f32 = cache.stitched_density(net, 4)
+    u8 = cache.stitched_density(net, 4, "uint8")
+    bf = cache.stitched_density(net, 4, "bfloat16")
+    assert f32.shape == u8.shape == bf.shape == (130, 150) and f32.std() > 0.01
+    assert np.abs(u8 - f32).max() <= 1 / 510 + 1e-7
+    assert np.all(np.abs(bf - f32) <= 2.0 ** -8 * np.abs(f32))
+    cpu_cache, cpu_net = _served_scene(tmp_path, "cpu")
+    np.testing.assert_allclose(f32, cpu_cache.stitched_density(cpu_net, 4), atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_stitched_density_start_finish_is_the_blocking_call(tmp_path):
+    """Two scenes started before either is finished (the oscd pipeline)
+    give the blocking call's densities bit for bit, in every download type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cache, net = _served_scene(tmp_path, "cuda")
+    for dt in ("float32", "uint8", "bfloat16"):
+        want = cache.stitched_density(net, 4, dt)
+        first = cache.stitched_density_start(net, 4, dt)
+        second = cache.stitched_density_start(net, 4, dt)
+        assert np.array_equal(cache.stitched_density_finish(first, dt), want)
+        assert np.array_equal(cache.stitched_density_finish(second, dt), want)
+
+
+@pytest.mark.cuda
+def test_run_overlapped_with_a_side_stream_on_the_producer():
+    """The producer queues each result on a side stream behind a long spin
+    kernel; the writer thread reads it through a Download, which waits on
+    the event behind the copy, and sees the finished values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.eval.inference import run_overlapped
+    from fcdgan_tpu_torch.utils.download import Download
+
+    side = torch.cuda.Stream()
+    base = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    seen = {}
+
+    def compute(i):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(2_000_000)  # the result is late unless waited for
+            return Download(base * (i + 1))
+
+    def process(dl, i):
+        seen[i] = dl.result().clone()
+
+    run_overlapped(range(6), compute, process, depth=2)
+    for i in range(6):
+        assert torch.equal(seen[i], (base * (i + 1)).cpu())

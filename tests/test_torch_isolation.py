@@ -69,17 +69,26 @@ def test_run_without_cpu_request_raises_without_gpu(monkeypatch, tmp_path):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mode="whu"), dict(mode="oscd"),
-                                dict(bn_mode="train"), dict(density_dtype="uint8"),
-                                dict(device_feed="stream"), dict(n_devices=4)])
-def test_unported_options_raise(kw, tmp_path):
+@pytest.mark.parametrize("kw,item", [
+    (dict(siamese_stats="split"), "A.3"), (dict(n_devices=4), "A.4"),
+    (dict(mode="whu", siamese_stats="split"), "A.3"), (dict(mode="oscd", n_devices=2), "A.4"),
+    (dict(bn_mode="train", siamese_stats="split"), "A.3"),
+    (dict(device_feed="stream", density_dtype="uint8", n_devices=2), "A.4")])
+def test_unported_options_raise(kw, item, tmp_path):
+    """The serving options outside the port, in every mode: each names its
+    ROADMAP item."""
     from fcdgan_tpu_torch.tools.infer import InferConfig, run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A, item {item}"):
         run(InferConfig(dir=str(tmp_path), smodel="SModel.pkl", device="cpu", **kw))
 
 
 def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):
+    """Past ``FCDGAN_SCENE_CACHE_MAX_MB`` the resident cache refuses the
+    scene, naming the streaming path and the unported window cache, and the
+    tool streams it instead."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
     from fcdgan_tpu_torch.data.synthetic import make_usss_scene
     from fcdgan_tpu_torch.io.checkpoint import save_net
     from fcdgan_tpu_torch.models.segmentor import Segmentor
@@ -88,9 +97,14 @@ def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):
     make_usss_scene(str(tmp_path), 40, 40, 3, seed=1)
     save_net(str(tmp_path / "SModel.pkl"), Segmentor(3))
     monkeypatch.setenv("FCDGAN_SCENE_CACHE_MAX_MB", "0.001")
+    ds = ScenePairDataset(str(tmp_path / "T1.tif"), str(tmp_path / "T2.tif"),
+                          patch_size=(24, 24), overlap_padding=(2, 2))
+    assert not DeviceSceneCache.supports(ds)
     with pytest.raises(NotImplementedError, match="DeviceSceneWindowCache"):
-        run(InferConfig(dir=str(tmp_path), smodel=str(tmp_path / "SModel.pkl"),
-                        device="cpu", compute_dtype="float32",
-                        patch_size=(24, 24), overlap_padding=(2, 2)))
+        DeviceSceneCache(ds, None, "cpu")
+    out = run(InferConfig(dir=str(tmp_path), smodel=str(tmp_path / "SModel.pkl"),
+                          device="cpu", compute_dtype="float32", progress=False,
+                          patch_size=(24, 24), overlap_padding=(2, 2)))
+    assert not out["fused"] and out["pixels"] == 40 * 40
     with pytest.raises(ValueError, match="convert_checkpoint"):
         run(InferConfig(dir=str(tmp_path), smodel=str(tmp_path), device="cpu"))

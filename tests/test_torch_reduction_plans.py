@@ -255,3 +255,31 @@ def test_ssim_small_levels_spread_over_the_card():
     blocks = {hw: 10 * p.tiles_y * p.tiles_x
               for hw, p in ((hw, ssim_mod.tile_plan(10, hw, hw, 11, 132)) for hw in (28, 14))}
     assert blocks == {28: 180, 14: 40}
+
+
+@pytest.mark.parametrize("need", [1, 10, 1024, 1025, 1100, 4096, 65535])
+def test_ticket_arrays_grow_to_the_call(need):
+    """A stream's counter array starts at MAX_TICKETS and is replaced, zeroed,
+    by a power-of-two one when a call needs more counters (fused_ssim: one
+    per image), and kept as it is for every smaller call after."""
+    from fcdgan_tpu_torch.ops.tickets import counter_size, counters
+
+    made = []
+
+    def zeros(size):
+        made.append(size)
+        return torch.zeros(size, dtype=torch.int32)
+
+    table = {}
+    first = counters(table, ("dev", "stream"), MAX_TICKETS, zeros)
+    assert made == [MAX_TICKETS] and first.numel() == MAX_TICKETS
+    got = counters(table, ("dev", "stream"), need, zeros)
+    want = max(MAX_TICKETS, 1 << (need - 1).bit_length())
+    assert got.numel() == want >= need and counter_size(MAX_TICKETS, need) == want
+    assert got.numel() < 2 * need or need <= MAX_TICKETS
+    assert made == ([MAX_TICKETS] if need <= MAX_TICKETS else [MAX_TICKETS, want])
+    assert not got.any()
+    for smaller in (1, need, want):
+        assert counters(table, ("dev", "stream"), smaller, zeros) is got
+    assert counters(table, ("dev", "other stream"), 1, zeros) is not got
+    assert len(made) == (2 if need <= MAX_TICKETS else 3)
