@@ -222,6 +222,10 @@ RSSS_PATCH = 200
 RSSS_INIT_BATCH = 20
 RSSS_BATCH = 12
 RSSS_EPOCHS = (1, 3)  # G pretrain, adversarial
+# the rolling-window budget of the 2048² scene's phases: 3 tile rows a slab,
+# 4 slabs (the packed uint16 slab is 620 x 2220 x 7 x 2 bytes, 3 slots)
+WINDOW_MB = "64"
+SERVE_REPEATS = 3  # windowed serving: each path timed this often in turn
 SOURCES = ["conv3x3", "pool_bwd", "fused_ssim", "channel_sums", "phase_pool"]
 # S computes in bf16 and its density is bf16-valued: one step is 2^-8 on
 # [0.5, 1), the largest below 1. Two chunk widths give cuDNN other batches
@@ -344,14 +348,24 @@ def device_phase():
 
 
 def build_phase():
+    """nvcc for every kernel source and g++ for the native tile I/O library,
+    all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fcdgan_tpu_torch import native
     from fcdgan_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    logs = build.build(SOURCES)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build.host_library, native.SOURCE)
+        logs = build.build(SOURCES)
+        host.result()
+    native.load()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
-    phase("build", {"seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    phase("build", {"seconds": time.perf_counter() - t0, "ptxas": ptxas,
+                    "native": os.path.basename(build.host_library(native.SOURCE))})
 
 
 def roofline(nbytes, flops, dtype_name):
@@ -787,19 +801,22 @@ def _launch_totals(per_step, n_steps):
             for name, kinds in per_step.items()}
 
 
-def derived_launches(torch, n_tiles):
-    """Each kernel's launches in the train phase, from the models' structure
-    (``_model_counts``) and the steps per epoch: a G-pretrain step runs G
-    forward and backward and the VGG on the target (no graph) and on the
-    generated tiles; an S-init step runs G forward without a graph and S and
-    the VGG (one stacked pass) forward and backward; a joint step both nets
-    forward and backward; an inference chunk S in eval mode."""
+def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=None):
+    """Each kernel's launches in a USSS run, from the models' structure
+    (``_model_counts``) and the steps per epoch (``steps``, else one per
+    batch of ``n_tiles``) and inference chunks (``chunks``, else the fused
+    plan of ``serve_chunks``): a G-pretrain step runs G forward and backward
+    and the VGG on the target (no graph) and on the generated tiles; an
+    S-init step runs G forward without a graph and S and the VGG (one
+    stacked pass) forward and backward; a joint step both nets forward and
+    backward; an inference chunk S in eval mode."""
     from fcdgan_tpu_torch.data.device_cache import serve_chunks
 
     k = _model_counts(torch, PATCH)
-    chunks = -(-n_tiles // BATCH)
-    n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * chunks for e in TRAIN_EPOCHS)),
-                   inference_chunk=len(serve_chunks(n_tiles, BATCH)))
+    steps = -(-n_tiles // BATCH) if steps is None else steps
+    chunks = len(serve_chunks(n_tiles, BATCH)) if chunks is None else chunks
+    n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * steps for e in epochs)),
+                   inference_chunk=chunks)
     gb, sb = k["g_bns"], k["s_bns"]
     sp, vp = k["s_pools"], k["vgg_pools"]
     gs_convs, levels = k["g_convs"] + k["s_convs"], k["levels"]
@@ -815,7 +832,7 @@ def derived_launches(torch, n_tiles):
     return _launch_totals(per_step, n_steps), per_step
 
 
-def derived_wsss_launches(torch):
+def derived_wsss_launches(torch, epochs=WSSS_EPOCHS):
     """Each kernel's launches in the wsss phase: a G-pretrain step as in
     USSS (RGB perception); an adversarial step runs S forward twice and
     backward through both, D forward three times and backward through all
@@ -824,8 +841,8 @@ def derived_wsss_launches(torch):
     train mode without a graph."""
     k = _model_counts(torch, WSSS_SIZE)
     n_c, n_nc = WSSS_SLICES
-    n_steps = {"g_pretrain": WSSS_EPOCHS[0] * -(-n_nc // WSSS_UNC_BATCH),
-               "adversarial": WSSS_EPOCHS[1] * -(-max(n_c, n_nc) // WSSS_BATCH),
+    n_steps = {"g_pretrain": epochs[0] * -(-n_nc // WSSS_UNC_BATCH),
+               "adversarial": epochs[1] * -(-max(n_c, n_nc) // WSSS_BATCH),
                "inference_chunk": -(-n_c // WSSS_BATCH)}
     gb, sb, db = k["g_bns"], k["s_bns"], k["d_bns"]
     sp, vp = k["s_pools"], k["vgg_pools"]
@@ -842,7 +859,7 @@ def derived_wsss_launches(torch):
     return _launch_totals(per_step, n_steps), per_step
 
 
-def derived_rsss_launches(torch, n_train, n_test):
+def derived_rsss_launches(torch, n_train, n_test, epochs=RSSS_EPOCHS):
     """Each kernel's launches in the rsss phase, from the 4-band models'
     structure: a G-pretrain step as in USSS (per-band perception); an
     adversarial step runs S forward once and backward, D forward three
@@ -852,9 +869,9 @@ def derived_rsss_launches(torch, n_train, n_test):
     inference chunk S in eval mode."""
     k = _model_counts(torch, RSSS_PATCH, RSSS_BANDS)
     test_batches = -(-n_test // RSSS_BATCH)
-    n_steps = {"g_pretrain": RSSS_EPOCHS[0] * -(-n_train // RSSS_INIT_BATCH),
-               "adversarial": RSSS_EPOCHS[1] * -(-n_train // RSSS_BATCH),
-               "test_eval": RSSS_EPOCHS[1] * test_batches, "inference_chunk": test_batches}
+    n_steps = {"g_pretrain": epochs[0] * -(-n_train // RSSS_INIT_BATCH),
+               "adversarial": epochs[1] * -(-n_train // RSSS_BATCH),
+               "test_eval": epochs[1] * test_batches, "inference_chunk": test_batches}
     gb, sb, db = k["g_bns"], k["s_bns"], k["d_bns"]
     sp, vp = k["s_pools"], k["vgg_pools"]
     per_step = {
@@ -1272,6 +1289,7 @@ def wsss_phase(torch, work):
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.train.steps import WSSSSteps
 
     root = os.path.join(work, "whu")
     make_whu_dataset(root, n_changed=WSSS_SLICES[0], n_unchanged=WSSS_SLICES[1],
@@ -1288,7 +1306,9 @@ def wsss_phase(torch, work):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_wsss.main(argv)
+    with first_step(WSSSSteps, "g_pretrain") as first:
+        out = demo_wsss.main(argv)
+    out["first_g_step"] = first
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
     want, per_step = derived_wsss_launches(torch)
@@ -1433,6 +1453,7 @@ def rsss_phase(torch, work):
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.train.steps import RSSSSteps
 
     root = os.path.join(work, "oscd")
     # change rectangles across the scene; the regions grow 40 px around them
@@ -1449,7 +1470,9 @@ def rsss_phase(torch, work):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_rsss.main(argv)
+    with first_step(RSSSSteps, "g_pretrain") as first:
+        out = demo_rsss.main(argv)
+    out["first_g_step"] = first
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
     n_train, n_test = out["tiles"], out["test_tiles"]
@@ -1754,7 +1777,531 @@ def serve_oscd_phase(torch, root, rsss):
                          "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"serve_oscd checks failed: {checks}")
+    return launches, [r[0]["px_per_s"] for r in runs]
+
+
+# -- the host and rolling-window feeds ---------------------------------------
+
+
+def usss_args(work, ext, *extra):
+    """demo_usss on the 2048² serve scene at the train phase's settings, one
+    epoch of each phase."""
+    return ["--dir", work, "--compute-dtype", "bfloat16", "--batch-size", str(BATCH),
+            "--patch-size", f"{PATCH},{PATCH}", "--overlap-padding", f"{PAD},{PAD}",
+            "--init-num-epochs-g", "1", "--init-num-epochs-s", "1", "--num-epochs", "1",
+            "--log-tensorboard", "false", "--progress", "false", "--ext", ext, *extra]
+
+
+def scene_dataset(work, scene, **kw):
+    """The serve scene's ScenePairDataset with the normalizer of its stats
+    caches (written by make_model)."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+
+    scaler = Normalize(*dataset_meanstd(os.path.join(work, "T1_stats.txt"),
+                                        os.path.join(work, "T2_stats.txt"), None))
+    return ScenePairDataset(scene["x"], scene["y"], enhance=scaler, patch_size=(PATCH, PATCH),
+                            overlap_padding=(PAD, PAD), **kw)
+
+
+def within_ulp(got, want, ulps=1):
+    """Whether two float32 arrays agree within ``ulps`` units in the last
+    place, zeros where the other has zeros."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    try:
+        np.testing.assert_array_max_ulp(got, want, maxulp=ulps)
+    except AssertionError:
+        return False
+    return bool(np.array_equal(got == 0, want == 0))
+
+
+def window_plan(ds):
+    """(slab sizes, steps an epoch and serving chunks at BATCH) of the
+    window cache over ``ds`` at the current budget."""
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneWindowCache
+
+    sizes = DeviceSceneWindowCache(ds, ds.enhance, "cpu").slab_sizes
+    per = sum(-(-n // BATCH) for n in sizes)
+    return sizes, per, per
+
+
+def epoch_rates(sec):
+    """Each phase's epochs/s from a driver's ``epoch_seconds``."""
+    return {k: [1.0 / s for s in v] for k, v in sec.items() if k not in ("infer", "test")}
+
+
+def waits_summary(waits):
+    w = [row[2] for row in waits or []]
+    return {"switches": len(w), "total_s": sum(w), "max_s": max(w, default=0.0), "each_s": w}
+
+
+@contextlib.contextmanager
+def first_step(cls, name):
+    """Within the block, the float metrics of the first call of
+    ``cls.name`` (a train step) go into the yielded dict."""
+    got = {}
+    with record_calls(cls, name) as calls:
+        yield got
+    if calls:
+        got.update({k: float(v) for k, v in calls[0][1].items() if k != "confusion"})
+
+
+@contextlib.contextmanager
+def oscd_feed_timers(driver):
+    """Within the block, where the time of ``NativeOSCDBatchLoader``'s
+    batches goes: on its prefetch thread, each batch's whole production,
+    the native assembler calls in it and the Python ref/region tile reads
+    (``pipeline._paste``); on the driver's thread, the wait on each
+    ``prefetch`` queue (one entry per epoch loop, in the driver's order).
+    Yields the dict the totals go into."""
+    from fcdgan_tpu_torch import native
+    from fcdgan_tpu_torch.data import pipeline
+
+    got = {"produce_s": [], "assemble_s": [], "paste_s": [], "loops": []}
+
+    def timed(fn, key):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                got[key].append(time.perf_counter() - t0)
+        return call
+
+    def produce(loader_iter):
+        @functools.wraps(loader_iter)
+        def it(self):
+            gen = loader_iter(self)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(gen)
+                except StopIteration:
+                    return
+                got["produce_s"].append(time.perf_counter() - t0)
+                yield batch
+        return it
+
+    def waited(fn):
+        def run(iterator, depth=2):
+            loop = {"batches": 0, "wait_s": 0.0, "t0": time.perf_counter()}
+            got["loops"].append(loop)
+            gen = fn(iterator, depth)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(gen)
+                except StopIteration:
+                    loop["seconds"] = time.perf_counter() - loop.pop("t0")
+                    return
+                loop["wait_s"] += time.perf_counter() - t0
+                loop["batches"] += 1
+                yield batch
+        return run
+
+    saved = [(native.NativePairAssembler, "assemble"), (pipeline, "_paste"),
+             (pipeline.NativeOSCDBatchLoader, "__iter__"), (driver, "prefetch")]
+    old = [getattr(o, n) for o, n in saved]
+    native.NativePairAssembler.assemble = timed(old[0], "assemble_s")
+    pipeline._paste = timed(old[1], "paste_s")
+    pipeline.NativeOSCDBatchLoader.__iter__ = produce(old[2])
+    driver.prefetch = waited(old[3])
+    try:
+        yield got
+    finally:
+        for (o, n), v in zip(saved, old):
+            setattr(o, n, v)
+    for key in ("produce_s", "assemble_s", "paste_s"):
+        got[key] = {"calls": len(got[key]), "total_s": sum(got[key])}
+
+
+def close_losses(a, b, rtol=1e-3):
+    return bool(a) and a.keys() == b.keys() and all(
+        math.isclose(a[k], b[k], rel_tol=rtol, abs_tol=1e-6) for k in a)
+
+
+def usss_window_phase(torch, work, scene):
+    """demo_usss on the 2048² scene with the scene resident and then through
+    the rolling window (FCDGAN_SCENE_WINDOW_MB giving 4 slabs), one epoch of
+    each phase each; then the window's tiles against the resident gather
+    over an epoch, and the trained S's windowed densities (canvas and per
+    slab, float32 and uint8, each SERVE_REPEATS times) against its resident
+    one."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.demos import demo_usss
+
+    counters = kernel_counters()
+    runs = {}
+    with environ(FCDGAN_SCENE_WINDOW_MB=WINDOW_MB, FCDGAN_SERVE_BS=None):
+        ds = scene_dataset(work, scene, ref_path=scene["ref"])
+        sizes, steps, chunks = window_plan(ds)
+        for cache in ("on", "window"):
+            reset_launches(counters)
+            t0 = time.perf_counter()
+            out = demo_usss.main(usss_args(work, f"_{cache}", "--scene-cache", cache))
+            runs[cache] = (out, time.perf_counter() - t0, *launch_counts(counters))
+        n = runs["on"][0]["tiles"]
+        want_launches = {"on": derived_launches(torch, n, (1, 1, 1))[0],
+                         "window": derived_launches(torch, n, (1, 1, 1), steps, chunks)[0]}
+        win = DeviceSceneWindowCache(ds, ds.enhance, "cuda")
+        resident = DeviceSceneCache(ds, ds.enhance, "cuda")
+        seen, tiles_equal = [], True
+        for batch in win.loader(BATCH, shuffle=True, seed=5):
+            a, b = win.complete(batch), resident.complete(batch)
+            tiles_equal &= all(torch.equal(a[k], b[k]) for k in ("x", "y", "ref"))
+            seen += [int(i) for i, w in zip(batch["item"], batch["weight"]) if w > 0]
+        net = runs["window"][0]["sstate"].eval()
+        want = {dd: resident.stitched_density(net, BATCH, dd) for dd in ("float32", "uint8")}
+        written = open_raster(runs["window"][0]["density_path"]).read_block()[..., 0]
+        serve = {}
+        for tag, dd, env in (("canvas", "float32", {}),
+                             ("slabs", "float32", {"FCDGAN_SERVE_CANVAS_MAX_MB": "1"}),
+                             ("canvas_uint8", "uint8", {})):
+            rates, equal = [], True
+            for _ in range(SERVE_REPEATS):  # the run-to-run spread of each path
+                with environ(**env):
+                    cache = DeviceSceneWindowCache(ds, ds.enhance, "cuda")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = cache.stitched_density(net, BATCH, dd)
+                    rates.append(got.size / (time.perf_counter() - t0))
+                equal &= bool(np.array_equal(got, want[dd]))
+            serve[tag] = {"bit_equal_to_resident": equal, "px_per_s": rates,
+                          "slab_waits": waits_summary(cache.slab_waits)}
+    out_w = runs["window"][0]
+    checks = {
+        "feeds": [runs[c][0]["feed"] for c in ("on", "window")] == ["resident", "window"],
+        "n_slabs_at_least_4": out_w["n_slabs"] == len(sizes) >= 4,
+        "tiles_bit_equal_to_resident": bool(tiles_equal),
+        "every_tile_once_an_epoch": sorted(seen) == list(range(n)),
+        "written_density_is_resident_of_its_s": bool(np.array_equal(written, want["float32"])),
+        "launches": all(runs[c][2] == want_launches[c] for c in runs),
+        "conv3x3_all_wgmma": all(all_wgmma(runs[c][2], runs[c][3]) for c in runs),
+        "losses_finite": all(math.isfinite(v) for c in runs for ph in
+                             runs[c][0]["epoch_metrics"].values() for m in ph for v in m.values()),
+        **{f"density_{tag}_bit_equal": r["bit_equal_to_resident"] for tag, r in serve.items()},
+    }
+    phase("usss_window", {
+        "feed": out_w["feed"], "window_mb": WINDOW_MB, "n_slabs": out_w["n_slabs"],
+        "slab_sizes": sizes, "steps_per_epoch": {"resident": -(-n // BATCH), "window": steps},
+        "slab_waits": waits_summary(out_w["slab_waits"]),
+        "epochs_per_s": {c: epoch_rates(runs[c][0]["epoch_seconds"]) for c in runs},
+        "seconds": {c: runs[c][1] for c in runs},
+        "inference_seconds": {c: runs[c][0]["epoch_seconds"]["infer"] for c in runs},
+        "launches": runs["window"][2], "derived_launches": want_launches["window"],
+        "conv3x3_variants": runs["window"][3], "serve": serve,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"usss_window checks failed: {checks}")
+    return runs["window"][2]
+
+
+def usss_host_phase(torch, work, scene):
+    """demo_usss on the 2048² scene with --scene-cache off: the native raw
+    tiles normalized on the card, one epoch of each phase, then the tile-loop
+    inference; the feed's tiles (and those of --device-normalize off) within
+    1 f32 ulp of the resident gather."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.config import USSSConfig
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
+    from fcdgan_tpu_torch.data.pipeline import device_put_batch
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.demos import demo_usss
+
+    counters = kernel_counters()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    out = demo_usss.main(usss_args(work, "_host", "--scene-cache", "off"))
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    n = out["tiles"]
+    want = derived_launches(torch, n, (1, 1, 1), chunks=-(-n // BATCH))[0]
+    ds = scene_dataset(work, scene, ref_path=scene["ref"])
+    resident = DeviceSceneCache(ds, ds.enhance, "cuda")
+    feeds, tiles_ok = {}, True
+    for dn in ("auto", "off"):
+        cfg = USSSConfig(dir=work, batch_size=BATCH, scene_cache="off", device_normalize=dn)
+        feed, _, loader, placer = demo_usss.scene_feed(cfg, ds, ds.enhance, "cuda")
+        feeds[dn] = feed
+        for k, batch in zip(range(3), loader):
+            db = device_put_batch(batch, "cuda")
+            db = placer(db) if placer is not None else db
+            ref = resident.complete(batch)
+            tiles_ok &= all(within_ulp(db[key].cpu().numpy(), ref[key].cpu().numpy())
+                            for key in ("x", "y"))
+            tiles_ok &= bool(torch.equal(db["ref"].float(), ref["ref"]))
+    density = open_raster(out["density_path"]).read_block()[..., 0]
+    checks = {
+        "feed_native_raw": out["feed"] == "native_raw",
+        "device_normalize_off_takes_native": feeds == {"auto": "native_raw", "off": "native"},
+        "tiles_within_1_ulp_of_resident": bool(tiles_ok),
+        "tile_loop_density_written": bool(density.shape == (SCENE, SCENE)
+                                          and np.isfinite(density).all()
+                                          and 0 <= density.min() <= density.max() <= 1),
+        "color_written": os.path.isfile(out["color_path"]),
+        "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants),
+        "losses_finite": all(math.isfinite(v) for ph in out["epoch_metrics"].values()
+                             for m in ph for v in m.values()),
+    }
+    phase("usss_host", {"feed": out["feed"], "seconds": seconds,
+                        "epochs_per_s": epoch_rates(out["epoch_seconds"]),
+                        "inference_seconds": out["epoch_seconds"]["infer"],
+                        "launches": launches, "derived_launches": want,
+                        "conv3x3_variants": variants, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"usss_host checks failed: {checks}")
     return launches
+
+
+def serve_window_phase(torch, work, scene, smodel):
+    """stitched_inference(device_feed='auto') on the 2048² scene with
+    FCDGAN_SCENE_CACHE_MAX_MB below it: the window feed, its density bit-equal
+    to the resident fused pass at the same chunks; twice each, px/s."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.eval.inference import stitched_inference
+    from fcdgan_tpu_torch.io.checkpoint import load_segmentor
+
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache, serve_chunks
+
+    net = load_segmentor(smodel, device="cuda", compute_dtype=torch.bfloat16)
+    counters = kernel_counters()
+    res = {}
+    half = str(DeviceSceneCache.scene_bytes(scene_dataset(work, scene)) / 2e6)  # MB
+    with environ(FCDGAN_SERVE_BS="0", FCDGAN_SCENE_WINDOW_MB=WINDOW_MB):
+        for budget in (None, half, half, None):
+            with environ(FCDGAN_SCENE_CACHE_MAX_MB=budget):
+                tag = "resident" if budget is None else "window"
+                ds = scene_dataset(work, scene, out_path=os.path.join(work, f"d_{tag}.tif"))
+                sizes, _, chunks = window_plan(ds)
+                reset_launches(counters)
+                out = stitched_inference(ds, net, BATCH, "cuda")
+                launches, variants = launch_counts(counters)
+            r = res.setdefault(tag, {"px_per_s": [], "feed": [], "launches": launches,
+                                     "conv3x3_variants": variants})
+            r["px_per_s"].append(out["px_per_s"])
+            r["feed"].append(out["feed"])
+            r["density"] = out["density"]
+    k = _model_counts(torch, PATCH)
+    want = {"resident": derived_serve_launches(counters, k, len(serve_chunks(len(ds), BATCH))),
+            "window": derived_serve_launches(counters, k, chunks)}
+    checks = {"feeds": res["window"]["feed"] == ["window"] * 2
+              and res["resident"]["feed"] == ["resident"] * 2,
+              "bit_equal_to_resident": bool(np.array_equal(res["window"]["density"],
+                                                           res["resident"]["density"])),
+              **{f"launches_{t}": res[t]["launches"] == want[t] for t in res},
+              **{f"conv3x3_all_wgmma_{t}": all_wgmma(res[t]["launches"],
+                                                      res[t]["conv3x3_variants"]) for t in res}}
+    phase("serve_window", {"pixels": SCENE * SCENE, "slab_sizes": sizes,
+                           **{t: {key: v for key, v in r.items() if key != "density"}
+                              for t, r in res.items()},
+                           "derived_launches": want, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_window checks failed: {checks}")
+    return res["window"]["launches"]
+
+
+def wsss_host_phase(torch, root, wsss):
+    """demo_wsss with --slice-cache off over the wsss phase's slices (a G
+    model of its own, so the G pretrain runs): the native slice loaders,
+    1 G-pretrain + 2 adversarial epochs, the first G-pretrain step's losses
+    within rtol 1e-3 of the resident run's; the feed's batches item for item
+    and within 1 f32 ulp of the resident cache's under the same seed."""
+    import random
+
+    import numpy as np
+
+    from fcdgan_tpu_torch.config import WSSSConfig
+    from fcdgan_tpu_torch.data.datasets import WHUPairDataset
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.pipeline import device_put_batch
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.demos import demo_wsss
+    from fcdgan_tpu_torch.train.steps import WSSSSteps
+
+    dirs = [os.path.join(root, d) for d in ("before", "after", "Label")] + [root]
+    argv = ["--img-dir-x", dirs[0], "--img-dir-y", dirs[1], "--ref-dir", dirs[2],
+            "--label-dir", root, "--out-g-model-dir", os.path.join(root, "GModel_host"),
+            "--compute-dtype", "bfloat16", "--batch-size", str(WSSS_BATCH),
+            "--unc-batch-size", str(WSSS_UNC_BATCH), "--perception-layer", "1",
+            "--init-num-epochs-g", "1", "--num-epochs", "2", "--slice-cache", "off",
+            "--log-tensorboard", "false", "--progress", "false", "--ext", "_host"]
+    counters = kernel_counters()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    with first_step(WSSSSteps, "g_pretrain") as first:
+        out = demo_wsss.main(argv)
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    want = derived_wsss_launches(torch, (1, 2))[0]
+    scaler = Normalize(*dataset_meanstd(os.path.join(dirs[0], "stats_meanstd.txt"),
+                                        os.path.join(dirs[1], "stats_meanstd.txt"), None))
+    same_items, tiles_ok, batches = True, True, 0
+    feeds = {}
+    loaders = {}
+    for sc in ("on", "off"):
+        cfg = WSSSConfig(img_dir_x=dirs[0], img_dir_y=dirs[1], ref_dir=dirs[2], label_dir=root,
+                         batch_size=WSSS_BATCH, unc_batch_size=WSSS_UNC_BATCH, slice_cache=sc)
+        pair = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(0))
+        feeds[sc], cache, pl, ul = demo_wsss.slice_feed(cfg, pair, scaler, "cuda")
+        loaders[sc] = (cache, list(pl), list(ul))
+    cache = loaders["on"][0]
+
+    def real(b, n):  # a wrap-padded tail's real entries (the resident tail is short)
+        return {k: np.asarray(v)[:n] for k, v in b.items()}
+
+    for rb, nb in zip(loaders["on"][1], loaders["off"][1]):
+        nb = real(nb, len(rb["weight"]))
+        same_items &= all(np.array_equal(rb[k], nb[k]) for k in ("c_item", "nc_item", "weight"))
+        got = device_put_batch({k: nb[k] for k in ("c_x", "c_y", "nc_x", "nc_y", "c_ref")},
+                               "cuda")
+        ref = cache.complete_pair(rb)
+        tiles_ok &= all(within_ulp(got[k].cpu().numpy(), ref[k].cpu().numpy())
+                        for k in ("c_x", "c_y", "nc_x", "nc_y"))
+        tiles_ok &= bool(torch.equal(got["c_ref"], ref["c_ref"]))
+        batches += 1
+    for rb, nb in zip(loaders["on"][2], loaders["off"][2]):
+        nb = real(nb, len(rb["weight"]))
+        same_items &= bool(np.array_equal(rb["item"], nb["item"]))
+        ref = cache.complete_unc(rb)
+        got = device_put_batch({k: nb[k] for k in ("x", "y")}, "cuda")
+        tiles_ok &= all(within_ulp(got[k].cpu().numpy(), ref[k].cpu().numpy()) for k in ("x", "y"))
+    sec, res_sec = out["epoch_seconds"], wsss["epoch_seconds"]
+    checks = {
+        "feeds": out["feed"] == "native" and feeds == {"on": "resident", "off": "native"},
+        "batches_item_for_item": bool(same_items) and batches == len(loaders["off"][1]) > 0,
+        "tiles_within_1_ulp_of_resident": bool(tiles_ok),
+        "first_g_step_losses_rtol_1e-3": close_losses(first, wsss["first_g_step"]),
+        "confusion_covers_changed": bool(
+            out["evaluator"].confusion_matrix.sum() == WSSS_SLICES[0] * WSSS_SIZE ** 2),
+        "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants),
+    }
+    phase("wsss_host", {"feed": out["feed"], "seconds": seconds,
+                        "g_epoch_seconds": sec["g"], "adv_epoch_seconds": sec["adv"],
+                        "adv_epochs_per_s_warm": 1.0 / sec["adv"][-1],
+                        "resident_adv_epochs_per_s_warm": len(res_sec["adv"][1:])
+                        / sum(res_sec["adv"][1:]),
+                        "inference_seconds": sec["infer"],
+                        "first_g_step": first, "resident_first_g_step": wsss["first_g_step"],
+                        "launches": launches, "derived_launches": want,
+                        "conv3x3_variants": variants, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"wsss_host checks failed: {checks}")
+    return launches
+
+
+def rsss_host_phase(torch, root, rsss):
+    """demo_rsss with --tile-cache off over the rsss phase's scenes (a G model
+    of its own): NativeOSCDBatchLoader with padded tails, 1 G-pretrain + 2
+    adversarial epochs with their test evaluations and the inference, the
+    first G-pretrain step's losses within rtol 1e-3 of the resident run's."""
+    from fcdgan_tpu_torch.demos import demo_rsss
+    from fcdgan_tpu_torch.train.steps import RSSSSteps
+
+    argv = ["--img-dir", root, "--out-g-model-dir", os.path.join(root, "GModel_host"),
+            "--compute-dtype", "bfloat16", "--init-batch-size", str(RSSS_INIT_BATCH),
+            "--batch-size", str(RSSS_BATCH), "--patch-size", f"{RSSS_PATCH},{RSSS_PATCH}",
+            "--init-num-epochs-g", "1", "--num-epochs", "2", "--tile-cache", "off",
+            "--log-tensorboard", "false", "--progress", "false", "--ext", "_host"]
+    counters = kernel_counters()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    with first_step(RSSSSteps, "g_pretrain") as first, oscd_feed_timers(demo_rsss) as feed:
+        out = demo_rsss.main(argv)
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    n_train, n_test = out["tiles"], out["test_tiles"]
+    # the driver's loops in order: G pretrain, (adversarial, test) per epoch, inference
+    loop_names = ["g"] + ["adv", "test"] * 2 + ["infer"]
+    want = derived_rsss_launches(torch, n_train, n_test, (1, 2))[0]
+    sec, res_sec = out["epoch_seconds"], rsss["epoch_seconds"]
+    test_px = len(RSSS_SCENES[1]) * RSSS_SCENE ** 2
+    checks = {
+        "feed_native": out["feed"] == "native",
+        "padded_tails": n_train % RSSS_INIT_BATCH != 0,
+        "epochs": [len(sec["g"]), len(sec["adv"]), len(sec["test"])] == [1, 2, 2],
+        "test_and_inference_cover_the_test_scene": bool(
+            out["evaluator"].confusion_matrix.sum() == test_px
+            == out["test_evaluator"].confusion_matrix.sum()),
+        "first_g_step_losses_rtol_1e-3": close_losses(first, rsss["first_g_step"]),
+        "feed_timed": len(feed["loops"]) == len(loop_names) and feed["assemble_s"]["calls"] > 0,
+        "losses_finite": all(math.isfinite(v) for ph in out["epoch_metrics"].values()
+                             for m in ph for key, v in m.items() if key != "f1"),
+        "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants),
+    }
+    phase("rsss_host", {"feed": out["feed"], "seconds": seconds,
+                        "g_epoch_seconds": sec["g"], "adv_epoch_seconds": sec["adv"],
+                        "test_eval_seconds": sec["test"],
+                        "adv_epochs_per_s_warm": 1.0 / sec["adv"][-1],
+                        "resident_adv_epochs_per_s_warm": len(res_sec["adv"][1:])
+                        / sum(res_sec["adv"][1:]),
+                        "inference_seconds": sec["infer"],
+                        "feed_time": {**{k: feed[k] for k in
+                                         ("produce_s", "assemble_s", "paste_s")},
+                                      "loops": [{"loop": name, **loop} for name, loop
+                                                in zip(loop_names, feed["loops"])]},
+                        "first_g_step": first, "resident_first_g_step": rsss["first_g_step"],
+                        "launches": launches, "derived_launches": want,
+                        "conv3x3_variants": variants, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"rsss_host checks failed: {checks}")
+    return launches
+
+
+def serve_oscd_stream_phase(torch, root, rsss, fused_px_per_s):
+    """tools.infer --mode oscd --device-feed stream over the three scenes of
+    the rsss phase (NativeOSCDBatchLoader, its tail wrap-padded), twice: each
+    scene's density within one bf16 step (2^-8) of the serve_oscd phase's
+    fused one; launches from the batches; px/s against the fused path's."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.tools import infer
+
+    scenes = [s for group in RSSS_SCENES for s in group]
+    counters = kernel_counters()
+    n_tiles = len(scenes) * math.ceil(RSSS_SCENE / (RSSS_PATCH - 2 * PAD)) ** 2
+    batches = -(-n_tiles // RSSS_BATCH)
+    want = derived_serve_launches(counters, _model_counts(torch, RSSS_PATCH, RSSS_BANDS),
+                                  batches)
+    runs = []
+    for _ in range(2):
+        reset_launches(counters)
+        out = infer.run(infer.InferConfig(
+            mode="oscd", dir=root, txt_name="all.txt", smodel=rsss["smodel_path"],
+            patch_size=(RSSS_PATCH, RSSS_PATCH), overlap_padding=(PAD, PAD),
+            batch_size=RSSS_BATCH, device_feed="stream", ext="_stream", progress=False))
+        runs.append((out, *launch_counts(counters)))
+    out = runs[0][0]
+
+    def raster(scene, name):
+        return open_raster(os.path.join(root, scene, "ImagePair", name)).read_block()[..., 0]
+
+    diffs = [float(np.abs(raster(s, out["density_name"]) - raster(s, "density_serve")).max())
+             for s in scenes]
+    checks = {"feed_native": all(r[0]["feed"] == "native" and not r[0]["fused"] for r in runs),
+              "within_one_bf16_step_of_fused": max(diffs) <= BF16_STEP,
+              "pixels": out["pixels"] == len(scenes) * RSSS_SCENE ** 2,
+              "metrics_finite": all(math.isfinite(out[key]) for key in ("oa", "kappa", "auc")),
+              "launches": all(r[1] == want for r in runs),
+              "conv3x3_all_wgmma": all(all_wgmma(r[1], r[2]) for r in runs)}
+    phase("serve_oscd_stream", {"feed": out["feed"], "scenes": scenes, "batches": batches,
+                                "px_per_s": [r[0]["px_per_s"] for r in runs],
+                                "fused_px_per_s": fused_px_per_s,
+                                "max_abs_diff_to_fused": diffs, "tol": BF16_STEP,
+                                "launches": runs[0][1], "derived_launches": want,
+                                "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_oscd_stream checks failed: {checks}")
+    return runs[0][1]
 
 
 def record(name, source, replaces, rows, launches, step="usss_joint"):
@@ -1819,16 +2366,23 @@ def main():
         parity_phase(torch, smodel, ds, gpu_cache)
         del gpu_cache, fused
         torch.cuda.empty_cache()
+        more = {"serve_window": serve_window_phase(torch, work, scene, smodel),
+                "usss_window": usss_window_phase(torch, work, scene),
+                "usss_host": usss_host_phase(torch, work, scene)}
+        torch.cuda.empty_cache()
         launches, tdir = train_phase(torch, work)
         train_parity_phase(torch, tdir)
         shutil.rmtree(tdir)
         wsss_launches, wdir, wsss = wsss_phase(torch, work)
         wsss_parity_phase(torch, wdir)
         serve_whu_launches = serve_whu_phase(torch, wdir, wsss)
+        more["wsss_host"] = wsss_host_phase(torch, wdir, wsss)
         shutil.rmtree(wdir)
         rsss_launches, rdir, rsss = rsss_phase(torch, work)
         rsss_parity_phase(torch, rdir)
-        serve_oscd_launches = serve_oscd_phase(torch, rdir, rsss)
+        serve_oscd_launches, oscd_px_per_s = serve_oscd_phase(torch, rdir, rsss)
+        more["serve_oscd_stream"] = serve_oscd_stream_phase(torch, rdir, rsss, oscd_px_per_s)
+        more["rsss_host"] = rsss_host_phase(torch, rdir, rsss)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1848,6 +2402,8 @@ def main():
         r["serve_launches"] = serve_launches[name]
         r["serve_oscd_launches"] = serve_oscd_launches[name]
         r["serve_whu_launches"] = serve_whu_launches[name]
+        for phase_name, counts in more.items():
+            r[f"{phase_name}_launches"] = counts[name]
         records.append(r)
     summary = {"kernels": records, "card": smi,
                "conv3x3_per_step": conv_per_step(rows["conv3x3"]),

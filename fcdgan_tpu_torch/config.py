@@ -3,12 +3,14 @@
 ``USSSConfig``, ``WSSSConfig`` and ``RSSSConfig`` carry the JAX package's
 defaults (config.py:19-288, the constants of Demo_USSS.py:33-76,
 Demo_WSSS.py:31-66 and Demo_RSSS.py:31-67) and ``device`` (``cuda`` unless
-the caller asks for ``cpu``). The JAX fields ``platform``, ``learning_rate`` (which no phase
-reads: the schedules set every rate), ``device_normalize`` and
-``prefetch_depth`` have no counterpart: the resident caches normalize on
-the device and their batches are device gathers, with no host prefetch.
-Neither have ``eraser_regions`` and ``erase_thresh``, which only the
-unported ``random_eraser`` reads, so their flags are rejected.
+the caller asks for ``cpu``). ``device_normalize`` (USSS) and
+``prefetch_depth`` (all three) are the JAX package's: the native raw-tile
+feed normalizes on the device, and the host loaders run ``prefetch_depth``
+batches ahead on a background thread. The JAX fields ``platform`` and
+``learning_rate`` (which no phase reads: the schedules set every rate)
+have no counterpart. Neither have ``eraser_regions`` and ``erase_thresh``,
+which only the unported ``random_eraser`` reads, so their flags are
+rejected.
 ``unported``, ``unported_wsss`` and ``unported_rsss`` name the options
 whose values the port does not run yet; the drivers raise ``NotImplementedError`` for them.
 ``parse_cli`` is a copy of the JAX package's (:290-345): every dataclass
@@ -65,7 +67,12 @@ class USSSConfig:
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
     siamese_stats: str = "joint"    # 'split' is not ported
     density_dtype: str = "float32"  # quantized downloads are not ported
-    scene_cache: str = "auto"       # 'auto'/'on': device-resident scene
+    # 'auto'/'on'/'off': ship raw integral tiles from the native loader and
+    # normalize + pad-mask them on the device
+    device_normalize: str = "auto"
+    # 'auto' resident, else the rolling window, else the host loaders; 'on'
+    # resident; 'window' the rolling window; 'off' the host loaders
+    scene_cache: str = "auto"
     tail: str = "auto"              # 'auto'/'short': the true-size last batch
     remat: bool = False
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
@@ -80,6 +87,7 @@ class USSSConfig:
     process_id: Optional[int] = None
     vgg_npz: Optional[str] = None
     require_vgg: bool = False
+    prefetch_depth: int = 2         # host batches read ahead of the device
     log_tensorboard: bool = True
     save_checkpoints: bool = True
     progress: bool = True
@@ -129,7 +137,7 @@ class WSSSConfig:
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
     siamese_stats: str = "joint"    # 'split' is not ported
     density_dtype: str = "float32"  # quantized downloads are not ported
-    slice_cache: str = "auto"       # 'auto'/'on': device-resident slices
+    slice_cache: str = "auto"       # 'auto' resident else host loaders; 'on'; 'off'
     tail: str = "auto"              # 'auto'/'short': the true-size last batch
     remat: bool = False
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
@@ -144,6 +152,7 @@ class WSSSConfig:
     process_id: Optional[int] = None
     vgg_npz: Optional[str] = None
     require_vgg: bool = False
+    prefetch_depth: int = 2         # host batches read ahead of the device
     log_tensorboard: bool = True
     save_checkpoints: bool = True
     progress: bool = True
@@ -200,7 +209,7 @@ class RSSSConfig:
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
     siamese_stats: str = "joint"    # 'split' is not ported
     density_dtype: str = "float32"  # quantized downloads are not ported
-    tile_cache: str = "auto"        # 'auto'/'on': device-resident tile stacks
+    tile_cache: str = "auto"        # 'auto' resident else host loaders; 'on'; 'off'
     tail: str = "auto"              # 'auto'/'short': the true-size last batch
     remat: bool = False
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
@@ -215,6 +224,7 @@ class RSSSConfig:
     process_id: Optional[int] = None
     vgg_npz: Optional[str] = None
     require_vgg: bool = False
+    prefetch_depth: int = 2         # host batches read ahead of the device
     log_tensorboard: bool = True
     save_checkpoints: bool = True
     progress: bool = True
@@ -244,17 +254,12 @@ def _unported_common(cfg) -> List[str]:
 
 def unported(cfg: USSSConfig) -> List[str]:
     """The options of a USSS ``cfg`` whose values the port does not run yet."""
-    out = _unported_common(cfg)
-    if cfg.scene_cache not in ("auto", "on"):
-        out.append(f"--scene-cache {cfg.scene_cache} (window and host loaders)")
-    return out
+    return _unported_common(cfg)
 
 
 def unported_wsss(cfg: WSSSConfig) -> List[str]:
     """The options of a WSSS ``cfg`` whose values the port does not run yet."""
     out = _unported_common(cfg)
-    if cfg.slice_cache not in ("auto", "on"):
-        out.append(f"--slice-cache {cfg.slice_cache} (host slice loaders)")
     if cfg.random_assign:
         out.append("--random-assign")
     if cfg.random_eraser:
@@ -265,8 +270,6 @@ def unported_wsss(cfg: WSSSConfig) -> List[str]:
 def unported_rsss(cfg: RSSSConfig) -> List[str]:
     """The options of an RSSS ``cfg`` whose values the port does not run yet."""
     out = _unported_common(cfg)
-    if cfg.tile_cache not in ("auto", "on"):
-        out.append(f"--tile-cache {cfg.tile_cache} (host tile loaders)")
     if cfg.random_eraser:
         out.append("--random-eraser")
     return out

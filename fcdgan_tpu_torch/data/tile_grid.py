@@ -59,6 +59,17 @@ class TileGrid:
     def __len__(self) -> int:
         return len(self._xstart) * len(self._ystart)
 
+    @property
+    def patch_count(self) -> Tuple[int, int]:
+        """(nx, ny) tiles along each axis."""
+        return len(self._xstart), len(self._ystart)
+
+    @property
+    def ystarts(self) -> List[int]:
+        """The core tiles' first rows, which are also their canvas origins'
+        rows in the padded scene (the slab keys of the window cache)."""
+        return list(self._ystart)
+
     def decompose(self, item: int) -> Tuple[int, int]:
         """item -> (item_x, item_y) (parity: data_utils.py:94-95)."""
         ny = len(self._ystart)

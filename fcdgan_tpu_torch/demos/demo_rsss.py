@@ -1,10 +1,9 @@
 """Regional supervised change detection driver (reference: Demo_RSSS.py).
 
-Port of the JAX package's ``demos/demo_rsss.py`` on its device-resident
-path: per-scene normalizers over the OSCD layout (cached ``statsMS`` txts)
--> the raw tile stacks of the train and test scene lists resident on the
-device -> G pretrain with the REGION raster as the mask (skipped when
-``GModel.pkl`` is reused) -> adversarial S vs D epochs with
+Port of the JAX package's ``demos/demo_rsss.py``: per-scene normalizers
+over the OSCD layout (cached ``statsMS`` txts) -> the feed of the train and
+test scene lists -> G pretrain with the REGION raster as the mask (skipped
+when ``GModel.pkl`` is reused) -> adversarial S vs D epochs with
 region-synthesized unchanged pairs and the two region losses, each epoch
 followed by the test evaluation (train-mode BN by default, as the
 reference) -> the final eval-mode inference, tile by tile, into a density
@@ -12,8 +11,15 @@ and a color raster per test scene (``{scene}/ImagePair/density{ext}`` and
 ``color{ext}``, the color raster coded {0 TN, 1 FN, 2 FP, 3 TP}) ->
 ``Para.txt`` and ``SModel.pkl`` / ``DModel.pkl`` (``{img_dir}/model{ext}``)
 and ``GModel.pkl`` (``out_g_model_dir``), reference state_dicts. The
-inference runs synchronously; the JAX package's overlapped writer thread
-(``run_overlapped``) is the streaming path, not ported yet.
+inference runs synchronously.
+
+The feed is the JAX driver's choice (demo_rsss.py:95-135), named in the
+result's ``feed``: ``resident`` (the raw tile stacks on the device,
+``--tile-cache auto|on`` within ``FCDGAN_TILE_CACHE_MAX_MB``), else
+``NativeOSCDBatchLoader`` (``native``; its tails are wrap-padded with
+weight-0 duplicates, which train-mode BN sees in the G pretrain and the
+adversarial steps, as in the JAX package; the test evaluation trims them),
+else ``BatchLoader`` (``host``).
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -41,6 +47,7 @@ from ..config import RSSSConfig, parse_cli, unported_rsss
 from ..data.datasets import OSCDDataset, ScenePairDataset
 from ..data.device_cache import DeviceOSCDCache
 from ..data.normalize import Normalize
+from ..data.pipeline import BatchLoader, NativeOSCDBatchLoader, device_put_batch, prefetch
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap_gdal
 from ..eval.evaluator import Evaluator
@@ -72,6 +79,36 @@ def _check_supported(cfg: RSSSConfig) -> None:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
     if cfg.test_eval_bn not in ("train", "eval"):
         raise ValueError("--test-eval-bn must be 'train' or 'eval'")
+    if cfg.tile_cache not in ("auto", "on", "off"):
+        raise ValueError(f"--tile-cache must be auto, on or off, not {cfg.tile_cache!r}")
+
+
+FIELDS = ("x", "y", "item", "ref", "region")
+
+
+def tile_feed(cfg: RSSSConfig, dataset, test_dataset, device):
+    """(feed name, train cache, test cache) of the JAX driver's choice
+    (demo_rsss.py:95-135): the resident tile stacks of both lists, else
+    ``NativeOSCDBatchLoader``, else ``BatchLoader`` (no caches).
+    ``--tile-cache on`` raises when the stacks cannot be resident."""
+    if (cfg.tile_cache != "off" and DeviceOSCDCache.supports(dataset)
+            and DeviceOSCDCache.supports(test_dataset)):
+        return ("resident", DeviceOSCDCache(dataset, device),
+                DeviceOSCDCache(test_dataset, device))
+    if cfg.tile_cache == "on":
+        raise RuntimeError("--tile-cache on: needs the tiles within FCDGAN_TILE_CACHE_MAX_MB")
+    if all(NativeOSCDBatchLoader.supports(ds) for ds in (dataset, test_dataset)):
+        return "native", None, None
+    return "host", None, None
+
+
+def _loader(feed: str, ds, cache, batch_size: int, shuffle: bool, seed: int):
+    """The epoch batches of ``ds`` on its feed."""
+    if cache is not None:
+        return cache.loader(batch_size, shuffle=shuffle, seed=seed)
+    if feed == "native":
+        return NativeOSCDBatchLoader(ds, batch_size, shuffle=shuffle, seed=seed)
+    return BatchLoader(ds, batch_size, fields=FIELDS, shuffle=shuffle, seed=seed, tail="short")
 
 
 def _accuracy(ev: Evaluator) -> Dict[str, float]:
@@ -105,22 +142,26 @@ def run(cfg: RSSSConfig) -> Dict:
     os.makedirs(out_dir, exist_ok=True)
     os.makedirs(cfg.out_g_model_dir, exist_ok=True)
 
-    # -- datasets with per-scene normalizers, on the device (Demo_RSSS.py:75-134)
+    # -- datasets with per-scene normalizers and their feed (Demo_RSSS.py:75-134)
     def scene_list(txt_name):
         scalers = _scene_scalers(cfg.img_dir, txt_name, cfg.patch_size, cfg.stats_name)
-        ds = OSCDDataset(cfg.img_dir, txt_name, scaler=scalers, patch_size=cfg.patch_size,
-                         overlap_padding=cfg.overlap_padding)
-        return ds, DeviceOSCDCache(ds, device)
+        return OSCDDataset(cfg.img_dir, txt_name, scaler=scalers, patch_size=cfg.patch_size,
+                           overlap_padding=cfg.overlap_padding)
 
-    dataset, train_cache = scene_list(cfg.txt_name)
-    test_dataset, test_cache = scene_list(cfg.test_txt_name)
+    dataset, test_dataset = scene_list(cfg.txt_name), scene_list(cfg.test_txt_name)
     total, total_test = len(dataset), len(test_dataset)
-    init_loader = train_cache.loader(cfg.init_batch_size, shuffle=True, seed=cfg.seed)
-    train_loader = train_cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed + 1)
-    test_loader = test_cache.loader(cfg.batch_size)
+    feed, train_cache, test_cache = tile_feed(cfg, dataset, test_dataset, device)
+    init_loader = _loader(feed, dataset, train_cache, cfg.init_batch_size, True, cfg.seed)
+    train_loader = _loader(feed, dataset, train_cache, cfg.batch_size, True, cfg.seed + 1)
+    test_loader = _loader(feed, test_dataset, test_cache, cfg.batch_size, False, cfg.seed)
+
+    def put(batch, cache):
+        if cache is not None:
+            return cache.complete(batch)
+        return device_put_batch({k: batch[k] for k in FIELDS + ("weight",)}, device)
 
     # -- models / optimizers (Demo_RSSS.py:137-158) --------------------------
-    nband = train_cache.nband
+    nband = dataset.dslist[0].ds.raster_x.nband
     net_g = Generator(nband, compute_dtype=dtype)
     net_s = Segmentor(nband, compute_dtype=dtype)
     net_d = Discriminator(nband, compute_dtype=dtype)
@@ -151,9 +192,9 @@ def run(cfg: RSSSConfig) -> Dict:
         lr = schedules.G_PRETRAIN(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total)
         prog = Progress(total, lambda: init_epochs_g - 1 - i, cfg.progress)
-        for batch in init_loader:
+        for batch in prefetch(iter(init_loader), cfg.prefetch_depth):
             prog.start_batch()
-            db = train_cache.complete(batch)
+            db = put(batch, train_cache)
             bw = float(batch["weight"].sum())
             av.update(steps.g_pretrain(db["x"], db["y"], db["region"], db["weight"], lr), bw)
             prog.end_batch(int(bw))
@@ -176,9 +217,9 @@ def run(cfg: RSSSConfig) -> Dict:
         lr_d = schedules.D_ADV_RSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total)
         prog = Progress(total, lambda: cfg.num_epochs - 1 - i, cfg.progress)
-        for batch in train_loader:
+        for batch in prefetch(iter(train_loader), cfg.prefetch_depth):
             prog.start_batch()
-            db = train_cache.complete(batch)
+            db = put(batch, train_cache)
             bw = float(batch["weight"].sum())
             av.update(steps.adversarial(db["x"], db["y"], db["ref"], db["region"], db["item"],
                                         db["weight"], lr_s, lr_d), bw)
@@ -193,14 +234,17 @@ def run(cfg: RSSSConfig) -> Dict:
         seconds["adv"].append(time.perf_counter() - t0)
         metrics["adv"].append({**av.as_dict(), **_accuracy(ev)})
 
-        # the test evaluation (Demo_RSSS.py:399-447); the loader's last batch
-        # is already at its true size, so train-mode BN sees no duplicates
+        # the test evaluation (Demo_RSSS.py:399-447); a wrap-padded tail is
+        # trimmed to its real tiles, so train-mode BN sees no duplicates
         t0 = time.perf_counter()
         test_av = EpochAverages(1)
         evaluate = (steps.eval_confusion_train if cfg.test_eval_bn == "train"
                     else steps.eval_confusion)
-        for batch in test_loader:
-            db = test_cache.complete(batch)
+        for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
+            n_real = int(np.asarray(batch["weight"]).sum())
+            if cfg.test_eval_bn == "train" and n_real < len(batch["weight"]):
+                batch = {k: v[:n_real] for k, v in batch.items()}
+            db = put(batch, test_cache)
             cm, _ = evaluate(db["x"], db["y"], db["ref"], db["item"], db["weight"])
             test_av.update({"confusion": cm}, 0.0)
         test_acc = test_av.evaluator(len(cfg.gt_map))
@@ -226,12 +270,14 @@ def run(cfg: RSSSConfig) -> Dict:
     acc = Evaluator(num_class=len(cfg.gt_map))
     density_name = "{}{}".format(cfg.out_name_density, cfg.ext)
     color_name = "{}{}".format(cfg.out_name_binary, cfg.ext)
-    for batch in test_loader:
-        db = test_cache.complete(batch)
+    for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
+        db = put(batch, test_cache)
         cmap = steps.infer(db["x"], db["y"]).cpu().numpy()
         ref = db["ref"].cpu().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
+            if batch["weight"][ns] == 0:
+                continue
             item = int(item)
             test_dataset.write(cmap[ns], item, density_name)
             ref_chw = np.moveaxis(ref[ns], -1, 0)
@@ -286,6 +332,7 @@ def run(cfg: RSSSConfig) -> Dict:
         "g_pretrain_epochs": init_epochs_g,
         "tiles": total,
         "test_tiles": total_test,
+        "feed": feed,
     }
 
 

@@ -1,12 +1,21 @@
 """Unsupervised change detection driver (reference: Demo_USSS.py).
 
-Port of the JAX package's ``demos/demo_usss.py`` on its device-resident
-path: stats pass -> normalized tile dataset with the scene pair resident on
-the device -> G pretrain -> S init -> joint alternating (G-gradient
-accumulation) -> fused stitched inference of the whole scene -> the
+Port of the JAX package's ``demos/demo_usss.py``: stats pass -> normalized
+tile dataset -> G pretrain -> S init -> joint alternating (G-gradient
+accumulation) -> stitched inference of the whole scene -> the
 change-density GeoTIFF, the {TN,FN,FP,TP} color raster and the metrics ->
 ``SModel{ext}.pkl`` / ``GModel{ext}.pkl`` (reference state_dicts, so
 ``tools/infer.py`` serves the trained S as it stands) and ``Para_*.txt``.
+
+The feed is the JAX driver's choice (demo_usss.py:88-160), named in the
+result's ``feed``: ``resident`` (the scene pair on the device,
+``--scene-cache auto|on``), else ``window`` (the rolling-window slabs of a
+scene past ``FCDGAN_SCENE_CACHE_MAX_MB``, or ``--scene-cache window``), else
+the native loader's raw tiles normalized on the device (``native_raw``,
+``--device-normalize auto|on``) or its float32 tiles (``native``), else the
+Python ``BatchLoader`` (``host``). The caches run the fused stitched
+inference; the host feeds run the tile loop, whose downloads a writer thread
+stitches.
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -28,14 +37,18 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import native
 from ..config import USSSConfig, parse_cli, unported
 from ..data.datasets import ScenePairDataset
-from ..data.device_cache import DeviceSceneCache
+from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
 from ..data.normalize import Normalize
+from ..data.pipeline import (BatchLoader, DeviceNormalizer, NativeSceneBatchLoader,
+                             device_put_batch, prefetch)
 from ..data.raster import create_raster
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap_gdal
 from ..eval.evaluator import Evaluator
+from ..eval.inference import nhwc_infer, run_overlapped
 from ..eval.roc import RocCurve
 from ..io.checkpoint import save_net
 from ..io.records import (ScalarWriter, segmentation_summary, timestamped_para_path,
@@ -48,6 +61,7 @@ from ..train.loops import EpochAverages, Progress, accuracy_line
 from ..train.optim import adam
 from ..train.steps import PerceptionConfig, USSSSteps
 from ..utils.device import resolve_device
+from ..utils.download import Download
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_KEYS = ("NetLoss", "generator_loss", "l1_loss", "perception_loss", "ssim_loss")
@@ -63,6 +77,50 @@ def _check_supported(cfg: USSSConfig) -> None:
             "'Training: what the USSS slice leaves out')".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
+    for name, value, values in (("scene-cache", cfg.scene_cache, ("auto", "on", "window", "off")),
+                                ("device-normalize", cfg.device_normalize, ("auto", "on", "off"))):
+        if value not in values:
+            raise ValueError(f"--{name} must be one of {values}, not {value!r}")
+
+
+def scene_feed(cfg: USSSConfig, dataset, scaler, device):
+    """(feed name, cache or None, loader, placer or None) of the JAX
+    driver's choice (demo_usss.py:88-160): the resident scene, else the
+    rolling window, else the native loader (raw tiles with a
+    ``DeviceNormalizer`` placer when it can), else ``BatchLoader``.
+    ``--scene-cache on|window`` and ``--device-normalize on`` raise when they
+    cannot be met."""
+    cache = None
+    if cfg.scene_cache != "off":
+        if cfg.scene_cache != "window" and DeviceSceneCache.supports(dataset):
+            cache, feed = DeviceSceneCache(dataset, scaler, device), "resident"
+        elif DeviceSceneWindowCache.supports(dataset):
+            cache, feed = DeviceSceneWindowCache(dataset, scaler, device), "window"
+    if cfg.scene_cache in ("on", "window") and cache is None:
+        raise RuntimeError(
+            "--scene-cache {}: needs a Normalize enhance and the scene (or one tile-row "
+            "slab) within FCDGAN_SCENE_CACHE_MAX_MB / FCDGAN_SCENE_WINDOW_MB".format(
+                cfg.scene_cache))
+    if cache is not None:
+        return feed, cache, cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed), None
+    placer = None
+    if all(native.can_open(r.path) for r in (dataset.raster_x, dataset.raster_y)):
+        raw = (cfg.device_normalize != "off"
+               and NativeSceneBatchLoader.supports_device_normalize(dataset))
+        loader = NativeSceneBatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                        device_normalize=raw)
+        feed = "native_raw" if raw else "native"
+        if raw:
+            placer = DeviceNormalizer(scaler, dataset.size()[2], device)
+    else:
+        loader = BatchLoader(dataset, cfg.batch_size, fields=("x", "y", "item", "ref"),
+                             shuffle=True, seed=cfg.seed, tail="short")
+        feed = "host"
+    if cfg.device_normalize == "on" and feed != "native_raw":
+        raise RuntimeError("--device-normalize on: needs the native loader and a shared "
+                           "integral raster dtype ({})".format(
+                               native.build_error() or "the rasters do not allow it"))
+    return feed, None, loader, placer
 
 
 def _log_accuracy(writer: ScalarWriter, ev: Evaluator, step: int, prefix: str = ""):
@@ -101,8 +159,13 @@ def run(cfg: USSSConfig) -> Dict:
                                enhance=scaler, patch_size=cfg.patch_size,
                                overlap_padding=cfg.overlap_padding)
     total = len(dataset)
-    cache = DeviceSceneCache(dataset, scaler, device)
-    loader = cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed)
+    feed, cache, loader, placer = scene_feed(cfg, dataset, scaler, device)
+
+    def put(batch):
+        if cache is not None:
+            return cache.complete(batch)
+        db = device_put_batch(batch, device)
+        return placer(db) if placer is not None else db
 
     # -- models / steps (Demo_USSS.py:110-122) -------------------------------
     nband = dataset.size()[2]
@@ -125,9 +188,9 @@ def run(cfg: USSSConfig) -> Dict:
         t0 = time.perf_counter()
         av = EpochAverages(total)
         prog = Progress(total, lambda: n_epochs - 1 - i, cfg.progress)
-        for batch in loader:
+        for batch in prefetch(iter(loader), cfg.prefetch_depth):
             prog.start_batch()
-            db = cache.complete(batch)
+            db = put(batch)
             av.update(step_fn(db), float(batch["weight"].sum()))
             prog.end_batch(int(batch["weight"].sum()))
         prog.finish()
@@ -166,26 +229,17 @@ def run(cfg: USSSConfig) -> Dict:
                                      db["weight"], lr, lr),
               cfg.init_num_epochs_g + cfg.init_num_epochs_s)
 
-    # -- fused stitched inference + write-back (Demo_USSS.py:404-473) -------
+    # -- stitched inference + write-back (Demo_USSS.py:404-473) -------------
     print("Saving Change Map and Model")
     print("Segmentation of Change")
     t0 = time.perf_counter()
-    density = cache.stitched_density(steps.infer, batch_size=cfg.batch_size)
-    seconds["infer"] = time.perf_counter() - t0
-    dataset.write_full(density)
-    cmask_full = (density > cfg.prob_thresh).astype(np.int16)
-    ref_full = dataset.raster_ref.read_block()[..., 0].astype(np.int16)
-    if cfg.write_color:
-        xs, ys, _ = dataset.size()
-        codes = write_changemap_gdal(cmask_full[None], ref_full[None], write_color=True,
-                                     ref_map=cfg.gt_map, dt_map=cfg.pre_map)
-        with create_raster(out_color_path, xs, ys, 1, np.int32,
-                           like=dataset.raster_x) as out_color:
-            out_color.write_block(codes[0].astype(np.int32), 0, 0, band=0)
     acc = Evaluator(num_class=len(cfg.gt_map))
-    acc.add_batch_map(ref_full, cmask_full, list(cfg.gt_map), list(cfg.pre_map))
     roc = RocCurve()
-    roc.add_batch(density, ref_full == cfg.gt_map[1])
+    if cache is not None:
+        _fused_inference(cfg, cache, steps, dataset, acc, roc, out_color_path)
+    else:
+        _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device)
+    seconds["infer"] = time.perf_counter() - t0
     dataset.close_outputs()
     print(segmentation_summary(acc))
     print("AUC: {:.4f}".format(roc.auc()))
@@ -221,7 +275,82 @@ def run(cfg: USSSConfig) -> Dict:
         "epoch_metrics": metrics,
         "epoch_seconds": seconds,
         "tiles": total,
+        "feed": feed,
+        "n_slabs": cache.n_slabs if feed == "window" else None,
+        "slab_waits": cache.slab_waits if feed == "window" else None,
     }
+
+
+def _fused_inference(cfg, cache, steps, dataset, acc, roc, out_color_path) -> None:
+    """The whole scene through the cache's fused stitched pass (resident or
+    window); color raster and metrics over the full arrays (tile interiors
+    tile the scene disjointly)."""
+    density = cache.stitched_density(steps.infer, batch_size=cfg.batch_size)
+    dataset.write_full(density)
+    cmask_full = (density > cfg.prob_thresh).astype(np.int16)
+    ref_full = np.zeros_like(cmask_full)
+    if dataset.raster_ref is not None:
+        ref_full = dataset.raster_ref.read_block()[..., 0].astype(np.int16)
+    if cfg.write_color:
+        xs, ys, _ = dataset.size()
+        codes = write_changemap_gdal(cmask_full[None], ref_full[None], write_color=True,
+                                     ref_map=cfg.gt_map, dt_map=cfg.pre_map)
+        with create_raster(out_color_path, xs, ys, 1, np.int32,
+                           like=dataset.raster_x) as out_color:
+            out_color.write_block(codes[0].astype(np.int32), 0, 0, band=0)
+    acc.add_batch_map(ref_full, cmask_full, list(cfg.gt_map), list(cfg.pre_map))
+    roc.add_batch(density, ref_full == cfg.gt_map[1])
+
+
+def _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device) -> None:
+    """The tile loop of the host feeds (JAX demo_usss.py:357-438): host tiles
+    from ``BatchLoader`` through the eval-mode S, each download stitched by a
+    writer thread into the density and color rasters, the metrics over each
+    tile's interior."""
+    loader = BatchLoader(dataset, cfg.batch_size, fields=("x", "y", "item", "ref"),
+                         shuffle=False)
+    infer = nhwc_infer(steps.infer)
+    out_color = None
+    processed = 0
+    total = len(dataset)
+
+    def compute(batch):
+        db = device_put_batch({"x": batch["x"], "y": batch["y"]}, device)
+        return Download(infer(db["x"], db["y"]))
+
+    def process(dl: Download, batch):
+        nonlocal out_color, processed
+        cmap = dl.result().float().numpy()
+        cmask = (cmap > cfg.prob_thresh).astype(np.int16)
+        for ns in range(len(batch["weight"])):
+            if batch["weight"][ns] == 0:
+                continue
+            item = int(batch["item"][ns])
+            dataset.write_default(cmap[ns], item)
+            ref_chw = np.moveaxis(batch["ref"][ns], -1, 0)
+            cmask_chw = np.moveaxis(cmask[ns], -1, 0)
+            if cfg.write_color:
+                if out_color is None:
+                    xs, ys, _ = dataset.size()
+                    out_color = create_raster(out_color_path, xs, ys, 1, np.int32,
+                                              like=dataset.raster_x)
+                codes = write_changemap_gdal(cmask_chw, ref_chw, write_color=True,
+                                             ref_map=cfg.gt_map, dt_map=cfg.pre_map)
+                dataset.write(np.moveaxis(codes, 0, -1).astype(np.int32), item, out_color)
+            y0, y1, x0, x1 = dataset.grid.interior(item)
+            acc.add_batch_map(ref_chw[0, y0:y1, x0:x1].astype(np.int16),
+                              cmask_chw[0, y0:y1, x0:x1].astype(np.int16),
+                              list(cfg.gt_map), list(cfg.pre_map))
+            roc.add_batch(cmap[ns, y0:y1, x0:x1, 0], ref_chw[0, y0:y1, x0:x1] == cfg.gt_map[1])
+        processed += int(np.asarray(batch["weight"]).sum())
+        if cfg.progress:
+            print("\rProcessing batch: {}/{}".format(processed, total), end="", flush=True)
+
+    run_overlapped(prefetch(iter(loader), cfg.prefetch_depth), compute, process)
+    if cfg.progress:
+        print("\r", end="", flush=True)
+    if out_color is not None:
+        out_color.close()
 
 
 def main(argv=None) -> Dict:

@@ -1,16 +1,23 @@
 """Weakly supervised change detection driver (reference: Demo_WSSS.py).
 
-Port of the JAX package's ``demos/demo_wsss.py`` on its device-resident
-path: stats pass over every listed WHU slice -> the raw changed and
-unchanged slice stacks resident on the device -> G pretrain on the
-unchanged slices (skipped when ``GModel.pkl`` is reused or ``g_weight`` is
-0) -> adversarial S vs D epochs over changed/unchanged pairs re-paired each
-epoch -> the final inference over the changed slices with S in train mode
-(its BN running statistics move, before SModel is saved, as in the
-reference) -> one density map and one change map per changed slice, under
+Port of the JAX package's ``demos/demo_wsss.py``: stats pass over every
+listed WHU slice -> the feed -> G pretrain on the unchanged slices
+(skipped when ``GModel.pkl`` is reused or ``g_weight`` is 0) -> adversarial
+S vs D epochs over changed/unchanged pairs re-paired each epoch -> the
+final inference over the changed slices with S in train mode (its BN
+running statistics move, before SModel is saved, as in the reference) ->
+one density map and one change map per changed slice, under
 the slice's own file name -> ``Para.txt`` and ``SModel.pkl`` /
 ``DModel.pkl`` (``out_dir``) and ``GModel.pkl`` (``out_g_model_dir``),
 reference state_dicts.
+
+The feed is the JAX driver's choice (demo_wsss.py:79-145), named in the
+result's ``feed``: ``resident`` (the raw slice stacks on the device,
+``--slice-cache auto|on`` within ``FCDGAN_SLICE_CACHE_MAX_MB``), else the
+native slice loaders (``native``: ``NativeWHUPairBatchLoader`` and
+``NativeWHUBatchLoader``, whose tails are wrap-padded), else the Python
+``PairBatchLoader`` / ``BatchLoader`` (``host``). The final inference reads
+the changed slices from the resident stacks, or through ``BatchLoader``.
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -39,7 +46,9 @@ from ..config import WSSSConfig, parse_cli, unported_wsss
 from ..data.datasets import WHUDataset, WHUPairDataset
 from ..data.device_cache import DeviceWHUCache, IndexBatchLoader, IndexPairBatchLoader
 from ..data.normalize import Normalize
-from ..data.raster import write_image
+from ..data.pipeline import (BatchLoader, NativeWHUBatchLoader, NativeWHUPairBatchLoader,
+                             PairBatchLoader, device_put_batch, prefetch)
+from ..data.raster import read_image, write_image
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap
 from ..eval.evaluator import Evaluator
@@ -68,6 +77,45 @@ def _check_supported(cfg: WSSSConfig) -> None:
             "'Training: what the WSSS slice leaves out')".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
+    if cfg.slice_cache not in ("auto", "on", "off"):
+        raise ValueError(f"--slice-cache must be auto, on or off, not {cfg.slice_cache!r}")
+
+
+FIELDS = ("x", "y", "ref", "item", "label")
+
+
+def slice_feed(cfg: WSSSConfig, pair_ds, scaler, device):
+    """(feed name, cache or None, pair loader, unchanged-slice loader) of the
+    JAX driver's choice (demo_wsss.py:79-145): the resident stacks, else the
+    native slice loaders, else the Python loaders. ``--slice-cache on``
+    raises when the stacks cannot be resident."""
+    dirs = (cfg.img_dir_x, cfg.img_dir_y, cfg.ref_dir, cfg.label_dir)
+    reset = lambda e: pair_ds.order_reset()  # noqa: E731  re-pairs each epoch (Demo_WSSS.py:233)
+    if cfg.slice_cache != "off" and DeviceWHUCache.supports(pair_ds):
+        cache = DeviceWHUCache(pair_ds, scaler, device)
+        return ("resident", cache,
+                IndexPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                     epoch_hook=reset),
+                IndexBatchLoader(pair_ds.nc_len, cfg.unc_batch_size, shuffle=True,
+                                 seed=cfg.seed))
+    if cfg.slice_cache == "on":
+        raise RuntimeError("--slice-cache on: needs changed and unchanged slices within "
+                           "FCDGAN_SLICE_CACHE_MAX_MB")
+    unc_ds = WHUDataset(*dirs, scale=scaler, label_selected="0")
+    if all(NativeWHUBatchLoader.supports(ds) for ds in (pair_ds.c_ds, unc_ds)):
+        return ("native", None,
+                NativeWHUPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                         epoch_hook=reset),
+                NativeWHUBatchLoader(unc_ds, cfg.unc_batch_size, shuffle=True, seed=cfg.seed))
+    return ("host", None,
+            PairBatchLoader(pair_ds, cfg.batch_size, c_fields=FIELDS, nc_fields=FIELDS,
+                            shuffle=True, seed=cfg.seed, epoch_hook=reset, tail="short"),
+            BatchLoader(unc_ds, cfg.unc_batch_size, fields=FIELDS, shuffle=True, seed=cfg.seed,
+                        tail="short"))
+
+
+def _put(batch, keys, device) -> dict:
+    return device_put_batch({k: batch[k] for k in keys}, device)
 
 
 def run(cfg: WSSSConfig) -> Dict:
@@ -89,19 +137,25 @@ def run(cfg: WSSSConfig) -> Dict:
     sp2 = os.path.join(cfg.img_dir_y, "{}_meanstd.txt".format(cfg.stats_name))
     scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
 
-    # -- datasets on the device (Demo_WSSS.py:84-92) ---------------------------
+    # -- datasets and their feed (Demo_WSSS.py:84-92) -------------------------
     pair_ds = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(cfg.seed))
     total = len(pair_ds)
     total_unc = pair_ds.nc_len
-    cache = DeviceWHUCache(pair_ds, scaler, device)
-    # order_reset re-pairs changed/unchanged every epoch (Demo_WSSS.py:233)
-    pair_loader = IndexPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                                       epoch_hook=lambda e: pair_ds.order_reset())
-    unc_loader = IndexBatchLoader(total_unc, cfg.unc_batch_size, shuffle=True, seed=cfg.seed)
+    feed, cache, pair_loader, unc_loader = slice_feed(cfg, pair_ds, scaler, device)
     c_ds = pair_ds.c_ds
 
+    def put_pair(batch):
+        if cache is not None:
+            return cache.complete_pair(batch)
+        return _put(batch, ("c_x", "c_y", "c_ref", "nc_x", "nc_y", "weight"), device)
+
+    def put_unc(batch):
+        if cache is not None:
+            return cache.complete_unc(batch)
+        return _put(batch, ("x", "y", "weight"), device)
+
     # -- models / optimizers (Demo_WSSS.py:103-122) --------------------------
-    nband = cache.nband
+    nband = read_image(c_ds.img_path_x[0]).shape[-1]
     net_g = Generator(nband, compute_dtype=dtype)
     net_s = Segmentor(nband, compute_dtype=dtype)
     net_d = Discriminator(nband, compute_dtype=dtype)
@@ -134,9 +188,9 @@ def run(cfg: WSSSConfig) -> Dict:
         lr = schedules.G_PRETRAIN(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total_unc)
         prog = Progress(total_unc, lambda: init_epochs_g - 1 - i, cfg.progress)
-        for batch in unc_loader:
+        for batch in prefetch(iter(unc_loader), cfg.prefetch_depth):
             prog.start_batch()
-            db = cache.complete_unc(batch)
+            db = put_unc(batch)
             bw = float(batch["weight"].sum())
             av.update(steps.g_pretrain(db["x"], db["y"], db["weight"], lr), bw)
             prog.end_batch(int(bw))
@@ -158,9 +212,9 @@ def run(cfg: WSSSConfig) -> Dict:
         lr_d = schedules.D_ADV_WSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total)
         prog = Progress(total, lambda: cfg.num_epochs - 1 - i, cfg.progress)
-        for batch in pair_loader:
+        for batch in prefetch(iter(pair_loader), cfg.prefetch_depth):
             prog.start_batch()
-            db = cache.complete_pair(batch)
+            db = put_pair(batch)
             bw = float(batch["weight"].sum())
             av.update(steps.adversarial(db["c_x"], db["c_y"], db["c_ref"], db["nc_x"],
                                         db["nc_y"], db["weight"], lr_s, lr_d), bw)
@@ -184,12 +238,20 @@ def run(cfg: WSSSConfig) -> Dict:
     print("Segmentation of Change")
     t0 = time.perf_counter()
     acc = Evaluator(num_class=2)
-    for batch in IndexBatchLoader(pair_ds.c_len, cfg.batch_size):
-        db = cache.complete_c(batch)
+    # the changed slices from the resident stacks, else through BatchLoader
+    # (demo_wsss.py:297-305)
+    test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size) if cache is not None
+                   else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail="short"))
+    for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
+        db = cache.complete_c(batch) if cache is not None else _put(batch, ("x", "y"), device)
         cmap = steps.infer_train_mode(db["x"], db["y"])[..., 0].cpu().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
-            ref_mask = cache.cref_host[item, :, :, 0].astype(np.int16)
+            item = int(item)
+            if cache is not None:
+                ref_mask = cache.cref_host[item, :, :, 0].astype(np.int16)
+            else:
+                ref_mask = batch["ref"][ns][:, :, 0].astype(np.int16)
             acc.add_batch_map(ref_mask, cmask[ns])
             name = c_ds.get_file_name(int(item))
             if cfg.write_grey:
@@ -241,6 +303,7 @@ def run(cfg: WSSSConfig) -> Dict:
         "pairs": total,
         "changed": pair_ds.c_len,
         "unchanged": pair_ds.nc_len,
+        "feed": feed,
     }
 
 

@@ -10,13 +10,15 @@ Port of the JAX package's ``eval/inference.py`` (:27-307) on one device:
     ``dequant`` turns a downloaded one back into a float32 array.
   * ``run_overlapped`` runs ``compute`` on the caller's thread and
     ``process`` on a writer thread behind a bounded queue.
-  * ``stitched_inference`` serves one ``ScenePairDataset`` through the
-    device feed ``auto`` (the fused resident pass when
-    ``DeviceSceneCache.supports`` the scene), ``cache`` (per-batch gathers
-    from the resident scene) or ``stream`` (host tiles from ``BatchLoader``,
-    optionally uploaded in ``transfer_dtype``). Where the JAX ``auto`` feed
-    takes the rolling-window cache (a scene past the budget), the port
-    streams until that cache is ported (ROADMAP.md, A.3).
+  * ``stitched_inference`` serves one ``ScenePairDataset`` through the JAX
+    feed choice (:195-270): ``auto`` runs the fused pass of the resident
+    scene (``DeviceSceneCache``) or, past its budget, of the rolling window
+    (``DeviceSceneWindowCache``); ``cache`` gathers batches from the
+    resident scene; otherwise (and when neither cache takes the scene) host
+    tiles stream from the native loader, raw and normalized on the device
+    by ``DeviceNormalizer`` when it can, else float32, or from the Python
+    ``BatchLoader`` (``use_native=False``, or no native library). The
+    result names the ``feed``: resident, window, native_raw, native, host.
 
 Models here are NHWC functions ``infer(x, y) -> (B, h, w, 1)`` float32
 (``nhwc_infer`` wraps the NCHW Segmentor).
@@ -32,8 +34,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..data.device_cache import DeviceSceneCache
-from ..data.pipeline import BatchLoader, prefetch
+from .. import native
+from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
+from ..data.pipeline import (BatchLoader, DeviceNormalizer, NativeSceneBatchLoader,
+                             device_put_batch, prefetch, upload)
 from ..utils.download import Download, check_density_dtype, dequantize, quantize
 
 
@@ -128,31 +132,19 @@ def transfer_type(name: str) -> Optional[torch.dtype]:
     return _TRANSFER[name]
 
 
-def upload(a: np.ndarray, device: torch.device,
-           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """A host batch array on ``device`` (in ``dtype`` when given, cast on the
-    host): to a card through pinned memory with a ``non_blocking`` copy, so
-    the host does not wait for the work queued before it."""
-    t = torch.from_numpy(a)
-    if dtype is not None:
-        t = t.to(dtype)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
-
-
 @torch.no_grad()
 def stitched_inference(dataset, model, batch_size: int, device, device_feed: str = "auto",
                        density_dtype: str = "float32",
                        transfer_dtype: Optional[torch.dtype] = None,
                        prefetch_depth: int = 2, writer_depth: int = 4,
-                       on_tile: Optional[Callable[[int, np.ndarray], None]] = None) -> dict:
+                       on_tile: Optional[Callable[[int, np.ndarray], None]] = None,
+                       use_native: bool = True) -> dict:
     """Density of ``dataset``'s scene through the eval-mode ``model`` on
     ``device``, written through the dataset's density raster (JAX
     inference.py:163-307).
 
-    Returns {"density", "pixels", "seconds", "px_per_s", "fused"}:
-    ``density`` is the whole float32 raster on the fused path and None on
+    Returns {"density", "pixels", "seconds", "px_per_s", "fused", "feed"}:
+    ``density`` is the whole float32 raster on the fused paths and None on
     the others. ``transfer_dtype`` is the upload type of streamed host
     tiles (the JAX tool's ``--transfer-dtype``, inference.py:263-268); the
     resident feeds upload the raw scene once. On the per-batch paths
@@ -163,8 +155,14 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
     if device_feed not in ("auto", "cache", "stream"):
         raise ValueError(f"device_feed must be auto, cache or stream, not {device_feed!r}")
     device = torch.device(device)
-    if device_feed == "auto" and DeviceSceneCache.supports(dataset):
-        cache = DeviceSceneCache(dataset, dataset.enhance, device)
+    cache = None
+    if device_feed == "auto":
+        if DeviceSceneCache.supports(dataset):
+            cache, feed = DeviceSceneCache(dataset, dataset.enhance, device), "resident"
+        elif DeviceSceneWindowCache.supports(dataset):
+            # past the resident budget: per-slab fused passes (the window)
+            cache, feed = DeviceSceneWindowCache(dataset, dataset.enhance, device), "window"
+    if cache is not None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
@@ -173,17 +171,26 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         dataset.close_outputs()
         seconds = time.perf_counter() - t0
         return {"density": density, "pixels": int(density.size), "seconds": seconds,
-                "px_per_s": density.size / max(seconds, 1e-9), "fused": True}
+                "px_per_s": density.size / max(seconds, 1e-9), "fused": True, "feed": feed}
 
     infer, dequant = quantized_infer(
         cropped_infer(nhwc_infer(model), dataset.overlap_padding, dataset.patch_size),
         density_dtype)
-    cache = None
+    normalizer = None
     if device_feed != "stream" and DeviceSceneCache.supports(dataset):
-        cache = DeviceSceneCache(dataset, dataset.enhance, device)
+        cache, feed = DeviceSceneCache(dataset, dataset.enhance, device), "resident"
         loader = cache.loader(batch_size)
+    elif use_native and all(native.can_open(r.path)
+                            for r in (dataset.raster_x, dataset.raster_y)):
+        raw = (transfer_dtype is None
+               and NativeSceneBatchLoader.supports_device_normalize(dataset))
+        loader = NativeSceneBatchLoader(dataset, batch_size, device_normalize=raw)
+        feed = "native_raw" if raw else "native"
+        if raw:
+            normalizer = DeviceNormalizer(dataset.enhance, dataset.raster_x.nband, device)
     else:
         loader = BatchLoader(dataset, batch_size, fields=("x", "y", "item"), shuffle=False)
+        feed = "host"
     interior = dataset.interior_sizes()
     pixels = 0
     t0 = time.perf_counter()
@@ -192,6 +199,10 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         nonlocal pixels
         if cache is not None:
             db = cache.complete(batch)
+            bx, by = db["x"], db["y"]
+        elif normalizer is not None:  # raw tiles, normalized on the device
+            db = normalizer(device_put_batch({k: batch[k] for k in ("x", "y", "ref", "win")},
+                                             device))
             bx, by = db["x"], db["y"]
         else:
             bx = upload(batch["x"], device, transfer_dtype)
@@ -215,4 +226,4 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
     seconds = time.perf_counter() - t0
     dataset.close_outputs()
     return {"density": None, "pixels": pixels, "seconds": seconds,
-            "px_per_s": pixels / max(seconds, 1e-9), "fused": False}
+            "px_per_s": pixels / max(seconds, 1e-9), "fused": False, "feed": feed}

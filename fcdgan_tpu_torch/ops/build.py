@@ -6,6 +6,11 @@ alone (no PyTorch headers, so a build takes seconds) into
 ``ctypes``. The hash key means an edited source rebuilds and an unchanged
 one is built once per checkout. Builds happen at first use, never at import.
 A failed build raises with the compiler's output.
+
+``host_library`` builds a host C++ source the same way with ``g++`` (the
+native tile I/O library, ``native/tileio.cpp``). Every build writes a
+temporary file and moves it into place with ``os.replace``, so processes
+that build at once each load a whole library.
 """
 
 from __future__ import annotations
@@ -80,6 +85,38 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     if errors:
         raise KernelBuildError("\n".join(errors))
     return logs
+
+
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+def host_library(src: str, libs=("-lz", "-pthread"), build_dir: str = BUILD_DIR) -> str:
+    """Build the host C++ source ``src`` with g++ into
+    ``<build_dir>/lib<stem>-<hash of source and flags>.so`` unless it is
+    there; returns its path. A failed build raises with g++'s output."""
+    cmd_flags = [*GXX_FLAGS, *libs]
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(cmd_flags).encode()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(build_dir, f"lib{stem}-{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = [os.environ.get("CXX", "g++"), *GXX_FLAGS, src, "-o", tmp, *libs]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise KernelBuildError(f"cannot run {cmd[0]} for {src}: {e}") from e
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(f"{cmd[0]} failed for {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -182,6 +182,7 @@ def run_scene(cfg: InferConfig, device: torch.device) -> Dict:
     from ..data.stats import dataset_meanstd
     from ..eval.changemap import write_changemap_gdal
     from ..eval.evaluator import Evaluator
+    from ..data.device_cache import DeviceSceneCache
     from ..eval.inference import stitched_inference, transfer_type
     from ..eval.roc import RocCurve
 
@@ -240,10 +241,16 @@ def run_scene(cfg: InferConfig, device: torch.device) -> Dict:
         done += 1
         _progress(cfg, done, len(dataset))
 
+    # as the JAX tool (:182-230): a scene past the resident budget streams
+    # through BatchLoader (the library function would take the window)
+    feed = cfg.device_feed
+    if feed == "auto" and not DeviceSceneCache.supports(dataset):
+        feed = "stream"
     res = stitched_inference(dataset, net, cfg.batch_size, device,
-                             device_feed=cfg.device_feed, density_dtype=cfg.density_dtype,
+                             device_feed=feed, density_dtype=cfg.density_dtype,
                              transfer_dtype=transfer_type(cfg.transfer_dtype),
-                             prefetch_depth=cfg.prefetch_depth, on_tile=on_tile)
+                             prefetch_depth=cfg.prefetch_depth, on_tile=on_tile,
+                             use_native=False)
     if cfg.progress and not res["fused"]:
         print("\r", end="", flush=True)
     if res["fused"] and acc is not None:
@@ -254,7 +261,7 @@ def run_scene(cfg: InferConfig, device: torch.device) -> Dict:
         color["raster"].close()
     out = {"density_path": out_path, "color_path": out_color_path if "raster" in color else None,
            "pixels": res["pixels"], "seconds": res["seconds"], "px_per_s": res["px_per_s"],
-           "fused": res["fused"], "device": _device_name(device)}
+           "fused": res["fused"], "feed": res["feed"], "device": _device_name(device)}
     return _summarize(out, acc, roc)
 
 
@@ -379,10 +386,12 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
     Fused (``device_feed='auto'`` and every scene resident-capable): one
     ``DeviceSceneCache`` per scene and two scenes in flight, scene i+1
     started before scene i's download is resolved, written and scored
-    (:519-534). Otherwise ``BatchLoader`` batches over the scene list."""
+    (:519-534). Otherwise the scene list streams through
+    ``NativeOSCDBatchLoader`` (``feed`` native), or ``BatchLoader`` without
+    the native library (``feed`` host)."""
     from ..data.datasets import OSCDDataset
     from ..data.device_cache import DeviceSceneCache
-    from ..data.pipeline import BatchLoader, prefetch
+    from ..data.pipeline import BatchLoader, NativeOSCDBatchLoader, prefetch
     from ..demos.demo_rsss import _scene_scalers
     from ..eval.changemap import write_changemap_gdal
     from ..eval.evaluator import Evaluator
@@ -403,6 +412,7 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
     fused = cfg.device_feed == "auto" and all(
         DeviceSceneCache.supports(s.ds) for s in dataset.dslist)
     t0 = time.perf_counter()
+    feed = "resident"
 
     if fused:
         def resolve(s_idx, base, handle):
@@ -436,8 +446,15 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
         tdt = transfer_type(cfg.transfer_dtype)
         pady, padx = cfg.overlap_padding[1], cfg.overlap_padding[0]
         interior = dataset.interior_sizes()
-        loader = BatchLoader(dataset, cfg.batch_size,
-                             fields=("x", "y", "item", "ref", "region"), shuffle=False)
+        # the native per-scene assembly (its tail wrap-padded, weight 0),
+        # else BatchLoader (JAX :556-565)
+        if NativeOSCDBatchLoader.supports(dataset):
+            feed = "native"
+            loader = NativeOSCDBatchLoader(dataset, cfg.batch_size, shuffle=False)
+        else:
+            feed = "host"
+            loader = BatchLoader(dataset, cfg.batch_size,
+                                 fields=("x", "y", "item", "ref", "region"), shuffle=False)
         done = 0
 
         def compute(batch):
@@ -479,7 +496,7 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
     miou, ciou = acc.Mean_Intersection_over_Union()
     out = {"scenes": dataset.namelist, "density_name": density_name, "color_name": color_name,
            "pixels": pixels, "seconds": seconds, "px_per_s": pixels / max(seconds, 1e-9),
-           "fused": fused, "oa": acc.Pixel_Accuracy(), "kappa": acc.Pixel_Kappa(),
+           "fused": fused, "feed": feed, "oa": acc.Pixel_Accuracy(), "kappa": acc.Pixel_Kappa(),
            "precision": acc.Pixel_Precision_Rate(), "recall": acc.Pixel_Recall_Rate(),
            "f1": acc.Pixel_F1_score(), "miou": miou, "ciou": ciou, "auc": roc.auc(),
            "device": _device_name(device)}

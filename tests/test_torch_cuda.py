@@ -663,3 +663,120 @@ def test_run_overlapped_with_a_side_stream_on_the_producer():
     run_overlapped(range(6), compute, process, depth=2)
     for i in range(6):
         assert torch.equal(seen[i], (base * (i + 1)).cpu())
+
+
+def _uint16_scene(tmp_path):
+    """A 3-band uint16 scene pair whose samples cover every value class of
+    the type (0, 1, 32767, 32768 and up to 65535) and a uint8 reference."""
+    from fcdgan_tpu_torch.data.tiff import TiffWriter
+
+    rng = np.random.default_rng(4)
+    paths = {}
+    for name, shape in (("x", (90, 100, 3)), ("y", (90, 100, 3)), ("ref", (90, 100, 1))):
+        if name == "ref":
+            a = rng.integers(0, 2, size=shape).astype(np.uint8)
+        else:
+            a = rng.integers(0, 65536, size=shape).astype(np.uint16)
+            a[:2, :5] = np.array([0, 1, 32767, 32768, 65535], np.uint16)[None, :, None]
+        paths[name] = str(tmp_path / f"{name}.tif")
+        with TiffWriter(paths[name], shape[1], shape[0], shape[2], a.dtype) as w:
+            w.write_block(a)
+    return paths
+
+
+def _window_pair(tmp_path, device):
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneWindowCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+
+    p = _uint16_scene(tmp_path)
+    norm = Normalize([30000.0, 32000.5, 31000.0], [18000.0, 17500.0, 19000.0],
+                     [33000.0, 32500.0, 31500.0], [18500.0, 18250.0, 17000.0])
+    ds = ScenePairDataset(p["x"], p["y"], ref_path=p["ref"], enhance=norm,
+                          patch_size=(40, 40), overlap_padding=(4, 4))
+    return ds, DeviceSceneWindowCache(ds, norm, device)
+
+
+@pytest.mark.cuda
+def test_uint16_raw_tiles_and_slabs_widen_on_the_card(tmp_path, monkeypatch):
+    """uint16 slabs gathered on the card (through the int16 view) and raw
+    uint16 tiles normalized there by DeviceNormalizer: the window tiles equal
+    the CPU's bit for bit, the raw feed is within 1 ulp of the host
+    normalization, and every value class widens to its own float."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.data.pipeline import (BatchLoader, DeviceNormalizer,
+                                                NativeSceneBatchLoader, device_put_batch)
+
+    monkeypatch.setenv("FCDGAN_SCENE_WINDOW_MB", "0.3")
+    ds, gpu = _window_pair(tmp_path, "cuda")
+    _, cpu = _window_pair(tmp_path, "cpu")
+    assert gpu.n_slabs >= 3
+    for batch in gpu.loader(5, shuffle=True, seed=1):
+        got, want = gpu.complete(batch), cpu.complete(batch)
+        for k in ("x", "y", "ref"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+    vals = torch.tensor([0, 1, 32767, 32768, 65535], dtype=torch.uint16)
+    assert vals.cuda().float().cpu().tolist() == [0.0, 1.0, 32767.0, 32768.0, 65535.0]
+    placer = DeviceNormalizer(ds.enhance, 3, "cuda")
+    raw = NativeSceneBatchLoader(ds, 4, device_normalize=True)
+    for rb, hb in zip(raw, BatchLoader(ds, 4, fields=("x", "y", "item", "ref"), tail="pad")):
+        assert rb["x"].dtype == np.uint16
+        db = placer(device_put_batch(rb, "cuda"))
+        for k in ("x", "y"):
+            np.testing.assert_array_max_ulp(db[k].cpu().numpy(), hb[k], maxulp=1)
+        assert np.array_equal(db["ref"].cpu().numpy(), hb["ref"])
+
+
+@pytest.mark.cuda
+def test_slab_upload_behind_a_spin_is_read_right(tmp_path, monkeypatch):
+    """Each slab's upload is queued on the cache's side stream behind a 2 ms
+    spin: the gathers on the compute stream wait on its event and read the
+    finished slab, batch after batch, slab switch after slab switch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("FCDGAN_SCENE_WINDOW_MB", "0.3")
+    _, gpu = _window_pair(tmp_path, "cuda")
+    _, cpu = _window_pair(tmp_path, "cpu")
+    load = gpu._load_slab
+
+    def late_load(k):
+        with torch.cuda.stream(gpu._stream):
+            torch.cuda._sleep(2_000_000)
+        return load(k)
+
+    gpu._load_slab = late_load
+    for _ in range(2):
+        for batch in gpu.loader(3, shuffle=True, seed=2):
+            got = gpu.complete(batch)
+            want = cpu.complete(batch)
+            assert torch.equal(got["x"].cpu(), want["x"])
+            assert torch.equal(got["ref"].cpu(), want["ref"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [{}, {"FCDGAN_SERVE_CANVAS_MAX_MB": "0.001"}],
+                         ids=["canvas_overlap", "slabs"])
+def test_window_density_on_the_card_is_the_resident_one(tmp_path, monkeypatch, env):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneWindowCache
+
+    monkeypatch.delenv("FCDGAN_SERVE_BS", raising=False)
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+
+    cache, net = _served_scene(tmp_path, "cuda")
+    want = cache.stitched_density(net, 4)
+    d = str(tmp_path)  # the scene and the stats caches that _served_scene wrote
+    scaler = Normalize(*dataset_meanstd(os.path.join(d, "T1_stats.txt"),
+                                        os.path.join(d, "T2_stats.txt"), None))
+    ds = ScenePairDataset(os.path.join(d, "T1.tif"), os.path.join(d, "T2.tif"),
+                          enhance=scaler, patch_size=(64, 64), overlap_padding=(6, 6))
+    monkeypatch.setenv("FCDGAN_SCENE_WINDOW_MB", "0.45")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    win = DeviceSceneWindowCache(ds, scaler, "cuda")
+    assert win.n_slabs >= 2
+    assert np.array_equal(win.stitched_density(net, 4), want)

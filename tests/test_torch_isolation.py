@@ -32,13 +32,38 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fcdgan_tpu'))\n"
-        "print(len(mods)); assert not bad, bad\n")
+        "print(len(mods)); assert not bad, bad\n"
+        "import fcdgan_tpu_torch.native as n\n"
+        "assert n._lib is None and n._error is None  # nothing built or loaded\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def _native_sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".cpp", ".cu")):
+                yield os.path.join(d, f)
+
+
+@pytest.mark.parametrize("path", sorted(_native_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_native_sources_use_nothing_of_jax(path):
+    """The C++ and CUDA sources include nothing of the JAX package; the
+    host C++ library (the port's own copy) does not name it at all (the
+    CUDA sources cite the TPU kernel each one replaces)."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)", text, re.M)
+    assert not any(re.search(r"fcdgan_tpu(?!_torch)|jax", i, re.I) for i in includes)
+    if path.endswith(".cpp"):
+        assert not re.search(r"fcdgan_tpu(?!_torch)|jax", text, re.I)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))

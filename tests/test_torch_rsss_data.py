@@ -214,8 +214,7 @@ def test_rsss_schedules_match_jax(name):
 
 
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
-                                  ["--tail", "pad"], ["--tile-cache", "off"],
-                                  ["--random-eraser", "true"], ["--n-devices", "2"],
+                                  ["--tail", "pad"], ["--random-eraser", "true"], ["--n-devices", "2"],
                                   ["--checkpoint-every", "5"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"], ["--num-processes", "2"]])
@@ -227,7 +226,7 @@ def test_unported_options_raise(flag, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--eraser-regions", "2"], ["--erase-thresh", "0.2"],
-                                  ["--learning-rate", "1e-3"], ["--prefetch-depth", "2"],
+                                  ["--learning-rate", "1e-3"], ["--device-normalize", "on"],
                                   ["--platform", "cpu"]])
 def test_unread_options_are_rejected(flag, tmp_path):
     from fcdgan_tpu_torch.demos import demo_rsss

@@ -295,8 +295,7 @@ def test_demo_usss_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
-                                  ["--tail", "pad"], ["--scene-cache", "window"],
-                                  ["--scene-cache", "off"], ["--n-devices", "2"],
+                                  ["--tail", "pad"], ["--n-devices", "2"],
                                   ["--checkpoint-every", "5"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"]])

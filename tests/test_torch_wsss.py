@@ -153,7 +153,8 @@ def test_cache_past_its_budget_raises(whu, monkeypatch):
     from fcdgan_tpu_torch.data.normalize import Normalize
 
     p = pds.WHUPairDataset(*_dirs(whu), rng=random.Random(0))
-    monkeypatch.setattr(device_cache, "SLICE_CACHE_MAX_BYTES", 1000)
+    monkeypatch.setenv("FCDGAN_SLICE_CACHE_MAX_MB", "0.001")
+    assert not device_cache.DeviceWHUCache.supports(p)
     with pytest.raises(NotImplementedError, match="host slice loaders"):
         device_cache.DeviceWHUCache(p, Normalize([0] * 3, [1] * 3, [0] * 3, [1] * 3), "cpu")
 
@@ -486,11 +487,11 @@ def test_demo_wsss_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
-                                  ["--tail", "pad"], ["--slice-cache", "off"],
-                                  ["--random-assign", "true"], ["--random-eraser", "true"],
-                                  ["--n-devices", "2"], ["--checkpoint-every", "5"],
-                                  ["--resume", "true"], ["--density-dtype", "uint8"],
-                                  ["--profile-dir", "p"], ["--debug-nans", "true"]])
+                                  ["--tail", "pad"], ["--random-assign", "true"],
+                                  ["--random-eraser", "true"], ["--n-devices", "2"],
+                                  ["--checkpoint-every", "5"], ["--resume", "true"],
+                                  ["--density-dtype", "uint8"], ["--profile-dir", "p"],
+                                  ["--debug-nans", "true"]])
 def test_unported_options_raise(flag, tmp_path):
     from fcdgan_tpu_torch.demos import demo_wsss
 
@@ -499,7 +500,7 @@ def test_unported_options_raise(flag, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--eraser-regions", "2"], ["--erase-thresh", "0.2"],
-                                  ["--learning-rate", "1e-3"], ["--prefetch-depth", "2"]])
+                                  ["--learning-rate", "1e-3"], ["--device-normalize", "on"]])
 def test_unread_options_are_rejected(flag, tmp_path):
     from fcdgan_tpu_torch.demos import demo_wsss
 
