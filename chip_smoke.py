@@ -137,6 +137,27 @@ Phases, each printed on its own line; any failure exits non-zero:
            scene's density within 1e-3 of the demo's (bit-equality reported),
            finite oa/kappa/auc, launches from the chunk plan; px_per_s
 
+The training options, each run's launches held against the count derived
+for it (``<phase>_launches`` in the kernels line), every bf16 conv3x3 on
+wgmma:
+  usss_split  the train phase's USSS run with --siamese-stats split (S's
+           encoder once per branch), 1 + 1 + 1 epochs; its joint epoch
+           rate beside the train phase's; usss_split_parity: the
+           train_parity step with split S
+  remat    USSS joint steps at batch 10 with and without remat from the
+           same weights: BN buffers and counts after one step (f32 1e-6,
+           bf16 1e-4) and losses; step ms and peak memory of each, in turns
+  resume   the train phase's scene with --checkpoint-every 1 stopped after
+           the S init, then --resume: completed phases skipped, the restored
+           state_dicts and Adam states bit-equal to the files; seconds a save
+  profile  a USSS run under --profile-dir: the trace holds a CUDA event of
+           each kernel it launched, by symbol
+  wsss_split  one adversarial epoch of the wsss phase's set with split S
+           and D; wsss_split_parity (74 BN passes a step), serve_whu_split
+           (train-mode BN, split) against the demo's densities
+  eraser   one adversarial epoch each of WSSS and RSSS with --random-eraser
+           on the Python loaders (feed host), beside the resident rate
+
 Then one JSON line of kernel records (conv3x3's sums one serving chunk;
 the JSON summary file adds its ms per training step), and as the last line
 {"ok": true, "device": {...}}. f32 comparisons run with TF32 off (cuDNN and
@@ -147,6 +168,7 @@ chiprun_out/chip_smoke/ inside the checkout and are removed at the end.
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -761,8 +783,9 @@ def _gated(torch, module, hw):
 
 def _model_counts(torch, side, nband=3):
     """Per forward at ``side`` px of the ``nband``-band models: gated 3x3
-    convs of G and S, BNs of G, S and D, S's Down pools, the VGG pools before
-    the deepest tap, and the MS-SSIM levels as large as the window."""
+    convs of G and S (and of S's encoder, which split mode runs twice), BNs
+    of G, S, S's encoder and D, S's Down pools, the VGG pools before the
+    deepest tap, and the MS-SSIM levels as large as the window."""
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
@@ -787,9 +810,12 @@ def _model_counts(torch, side, nband=3):
     def bns(net):
         return sum(1 for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d))
 
+    encoder = blocks[:5]
     return {"g_convs": _gated(torch, net_g, side),
             "s_convs": sum(_gated(torch, b, side >> level) for b, level in blocks),
+            "s_enc_convs": sum(_gated(torch, b, side >> level) for b, level in encoder),
             "g_bns": bns(net_g), "s_bns": bns(net_s), "d_bns": bns(net_d),
+            "s_enc_bns": sum(bns(b) for b, _ in encoder),
             "s_pools": sum(1 for name, _ in net_s.named_children() if name.startswith("down")),
             "vgg_pools": vgg_pools, "levels": levels}
 
@@ -801,7 +827,18 @@ def _launch_totals(per_step, n_steps):
             for name, kinds in per_step.items()}
 
 
-def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=None):
+def _split_counts(k, split):
+    """S's gated convs, BNs and Down pools per forward and D's BNs per
+    forward: with ``split`` the encoder's kernels (and all of D's) run once
+    per branch, at half the batch."""
+    if not split:
+        return k["s_convs"], k["s_bns"], k["s_pools"], k["d_bns"]
+    return (k["s_convs"] + k["s_enc_convs"], k["s_bns"] + k["s_enc_bns"], 2 * k["s_pools"],
+            2 * k["d_bns"])
+
+
+def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=None,
+                     split=False):
     """Each kernel's launches in a USSS run, from the models' structure
     (``_model_counts``) and the steps per epoch (``steps``, else one per
     batch of ``n_tiles``) and inference chunks (``chunks``, else the fused
@@ -809,7 +846,8 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     and the VGG on the target (no graph) and on the generated tiles; an
     S-init step runs G forward without a graph and S and the VGG (one
     stacked pass) forward and backward; a joint step both nets forward and
-    backward; an inference chunk S in eval mode."""
+    backward; an inference chunk S in eval mode. ``split``: S's encoder runs
+    once per branch (``_split_counts``), in eval mode too."""
     from fcdgan_tpu_torch.data.device_cache import serve_chunks
 
     k = _model_counts(torch, PATCH)
@@ -817,12 +855,12 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     chunks = len(serve_chunks(n_tiles, BATCH)) if chunks is None else chunks
     n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * steps for e in epochs)),
                    inference_chunk=chunks)
-    gb, sb = k["g_bns"], k["s_bns"]
-    sp, vp = k["s_pools"], k["vgg_pools"]
-    gs_convs, levels = k["g_convs"] + k["s_convs"], k["levels"]
+    sc, sb, sp, _ = _split_counts(k, split)
+    gb, vp = k["g_bns"], k["vgg_pools"]
+    gs_convs, levels = k["g_convs"] + sc, k["levels"]
     per_step = {
         "conv3x3": {"g_pretrain": k["g_convs"], "s_init": gs_convs, "joint": gs_convs,
-                    "inference_chunk": k["s_convs"]},
+                    "inference_chunk": sc},
         "pool_bwd": {"g_pretrain": vp, "s_init": sp + vp, "joint": sp + vp},
         "fused_ssim": {"g_pretrain": levels, "s_init": levels, "joint": levels},
         "channel_sums": {"g_pretrain": gb, "s_init": gb + sb, "joint": gb + sb},
@@ -832,23 +870,24 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     return _launch_totals(per_step, n_steps), per_step
 
 
-def derived_wsss_launches(torch, epochs=WSSS_EPOCHS):
+def derived_wsss_launches(torch, epochs=WSSS_EPOCHS, split=False):
     """Each kernel's launches in the wsss phase: a G-pretrain step as in
     USSS (RGB perception); an adversarial step runs S forward twice and
     backward through both, D forward three times and backward through all
     three (two in the D update, one in the S loss), G in eval mode and the
     VGG (one stacked pass) forward and backward; an inference chunk S in
-    train mode without a graph."""
+    train mode without a graph. ``split``: S's encoder and D run once per
+    branch (``_split_counts``)."""
     k = _model_counts(torch, WSSS_SIZE)
     n_c, n_nc = WSSS_SLICES
     n_steps = {"g_pretrain": epochs[0] * -(-n_nc // WSSS_UNC_BATCH),
                "adversarial": epochs[1] * -(-max(n_c, n_nc) // WSSS_BATCH),
                "inference_chunk": -(-n_c // WSSS_BATCH)}
-    gb, sb, db = k["g_bns"], k["s_bns"], k["d_bns"]
-    sp, vp = k["s_pools"], k["vgg_pools"]
+    sc, sb, sp, db = _split_counts(k, split)
+    gb, vp = k["g_bns"], k["vgg_pools"]
     per_step = {
-        "conv3x3": {"g_pretrain": k["g_convs"], "adversarial": 2 * k["s_convs"] + k["g_convs"],
-                    "inference_chunk": k["s_convs"]},
+        "conv3x3": {"g_pretrain": k["g_convs"], "adversarial": 2 * sc + k["g_convs"],
+                    "inference_chunk": sc},
         "pool_bwd": {"g_pretrain": vp, "adversarial": 2 * sp + vp},
         "fused_ssim": {"g_pretrain": k["levels"], "adversarial": k["levels"]},
         "channel_sums": {"g_pretrain": gb, "adversarial": 2 * sb + 3 * db,
@@ -1130,12 +1169,7 @@ def train_phase(torch, work):
     tdir = os.path.join(work, "train")
     make_usss_scene(tdir, TRAIN_SCENE, TRAIN_SCENE, 3, seed=1, dtype="uint16",
                     rects=((150, 200, 120, 90), (600, 450, 150, 210)))
-    argv = ["--dir", tdir, "--compute-dtype", "bfloat16", "--batch-size", str(BATCH),
-            "--patch-size", f"{PATCH},{PATCH}", "--overlap-padding", f"{PAD},{PAD}",
-            "--init-num-epochs-g", str(TRAIN_EPOCHS[0]),
-            "--init-num-epochs-s", str(TRAIN_EPOCHS[1]),
-            "--num-epochs", str(TRAIN_EPOCHS[2]),
-            "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
+    argv = train_args(tdir, "_smoke", TRAIN_EPOCHS)
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
@@ -1177,7 +1211,17 @@ def train_phase(torch, work):
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
-    return launches, tdir
+    return launches, tdir, out
+
+
+def train_args(tdir, ext, epochs, *extra):
+    """demo_usss on the train phase's 1024² scene at its settings (bf16,
+    patch 220, batch 10), ``epochs`` (G pretrain, S init, joint)."""
+    return ["--dir", tdir, "--compute-dtype", "bfloat16", "--batch-size", str(BATCH),
+            "--patch-size", f"{PATCH},{PATCH}", "--overlap-padding", f"{PAD},{PAD}",
+            "--init-num-epochs-g", str(epochs[0]), "--init-num-epochs-s", str(epochs[1]),
+            "--num-epochs", str(epochs[2]), "--log-tensorboard", "false",
+            "--progress", "false", "--ext", ext, *extra]
 
 
 @contextlib.contextmanager
@@ -1200,15 +1244,15 @@ def record_ssim_levels():
         ssim_mod._ssim_level = orig
 
 
-def train_parity_phase(torch, tdir):
+def train_parity_phase(torch, tdir, siamese_stats="joint"):
     """One joint step on 2 tiles in f32 from the same seeded weights, on the
-    card (the kernels) and on the CPU (the plain versions). Besides the
-    losses, gradient norms and BN stats, the step's own MS-SSIM levels (its
-    masked target and generated tiles) are compared before the relu and the
-    product: on the card each level's kernel tables against the plain
-    version on the same inputs (atol 2e-5), and the card's tables against
-    the CPU's (atol 1e-4, as their inputs come from the two devices' G and S
-    forwards)."""
+    card (the kernels) and on the CPU (the plain versions), with S in
+    ``siamese_stats`` mode. Besides the losses, gradient norms and BN stats,
+    the step's own MS-SSIM levels (its masked target and generated tiles)
+    are compared before the relu and the product: on the card each level's
+    kernel tables against the plain version on the same inputs (atol 2e-5),
+    and the card's tables against the CPU's (atol 1e-4, as their inputs come
+    from the two devices' G and S forwards)."""
     from fcdgan_tpu_torch.data.datasets import ScenePairDataset
     from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
     from fcdgan_tpu_torch.data.normalize import Normalize
@@ -1230,7 +1274,7 @@ def train_parity_phase(torch, tdir):
     vggp = vgg16_random_params(0)
     res = {}
     for dev in ("cuda", "cpu"):
-        net_g, net_s = (type(n)(3) for n in nets0)
+        net_g, net_s = Generator(3), Segmentor(3, siamese_stats=siamese_stats)
         for a, b in zip((net_g, net_s), nets0):
             a.load_state_dict(b.state_dict())
             a.to(dev)
@@ -1263,19 +1307,18 @@ def train_parity_phase(torch, tdir):
     table_err = max((a - b).abs().max().item() for a, b in zip(tg, tc))
     ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and stats_err <= 1e-4
           and len(tg) == len(tc) == 5 and kernel_err <= 2e-5 and table_err <= 1e-4)
-    phase("train_parity", {"tiles": 2, "losses_cuda": mg, "losses_cpu": mc,
-                           "grad_norms_cuda": ng, "grad_norms_cpu": nc,
-                           "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
-                           "bn_stats_max_abs": stats_err,
-                           "ssim_levels": len(tg),
-                           "ssim_tables_cuda": [t.tolist() for t in tg],
-                           "ssim_kernel_vs_plain_max_abs": kernel_err,
-                           "ssim_tables_cuda_vs_cpu_max_abs": table_err,
-                           "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3,
-                                    "bn_stats_abs": 1e-4, "ssim_kernel_abs": 2e-5,
-                                    "ssim_tables_abs": 1e-4}, "ok": ok})
+    name = "train_parity" if siamese_stats == "joint" else "usss_split_parity"
+    phase(name, {"tiles": 2, "siamese_stats": siamese_stats, "losses_cuda": mg,
+                 "losses_cpu": mc, "grad_norms_cuda": ng, "grad_norms_cpu": nc,
+                 "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+                 "bn_stats_max_abs": stats_err, "ssim_levels": len(tg),
+                 "ssim_tables_cuda": [t.tolist() for t in tg],
+                 "ssim_kernel_vs_plain_max_abs": kernel_err,
+                 "ssim_tables_cuda_vs_cpu_max_abs": table_err,
+                 "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "bn_stats_abs": 1e-4,
+                          "ssim_kernel_abs": 2e-5, "ssim_tables_abs": 1e-4}, "ok": ok})
     if not ok:
-        raise AssertionError(f"train parity: losses {loss_rel}, grad norms {norm_rel}, "
+        raise AssertionError(f"{name}: losses {loss_rel}, grad norms {norm_rel}, "
                              f"BN stats {stats_err}, {len(tg)} SSIM levels, kernel "
                              f"{kernel_err}, tables {table_err}")
 
@@ -1294,14 +1337,7 @@ def wsss_phase(torch, work):
     root = os.path.join(work, "whu")
     make_whu_dataset(root, n_changed=WSSS_SLICES[0], n_unchanged=WSSS_SLICES[1],
                      size=WSSS_SIZE, seed=2)
-    argv = ["--img-dir-x", os.path.join(root, "before"),
-            "--img-dir-y", os.path.join(root, "after"),
-            "--ref-dir", os.path.join(root, "Label"), "--label-dir", root,
-            "--out-g-model-dir", os.path.join(root, "GModel"),
-            "--compute-dtype", "bfloat16", "--batch-size", str(WSSS_BATCH),
-            "--unc-batch-size", str(WSSS_UNC_BATCH), "--perception-layer", "1",
-            "--init-num-epochs-g", str(WSSS_EPOCHS[0]), "--num-epochs", str(WSSS_EPOCHS[1]),
-            "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
+    argv = wsss_args(root, "_smoke", WSSS_EPOCHS)
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
@@ -1358,12 +1394,27 @@ def wsss_phase(torch, work):
     return launches, root, out
 
 
-def wsss_parity_phase(torch, root):
+def wsss_args(root, ext, epochs, *extra):
+    """demo_wsss over the WHU set at ``root`` at the wsss phase's settings,
+    ``epochs`` (G pretrain, adversarial); a later run reuses the first
+    run's GModel.pkl and skips the G pretrain."""
+    return ["--img-dir-x", os.path.join(root, "before"),
+            "--img-dir-y", os.path.join(root, "after"),
+            "--ref-dir", os.path.join(root, "Label"), "--label-dir", root,
+            "--out-g-model-dir", os.path.join(root, "GModel"),
+            "--compute-dtype", "bfloat16", "--batch-size", str(WSSS_BATCH),
+            "--unc-batch-size", str(WSSS_UNC_BATCH), "--perception-layer", "1",
+            "--init-num-epochs-g", str(epochs[0]), "--num-epochs", str(epochs[1]),
+            "--log-tensorboard", "false", "--progress", "false", "--ext", ext, *extra]
+
+
+def wsss_parity_phase(torch, root, siamese_stats="joint"):
     """One adversarial step on 2 pairs in f32 from the same seeded weights,
-    on the card (the kernels) and on the CPU (the plain versions): losses,
-    S and D gradient norms, BN running stats of S and D; and on the card each
-    of the step's own BN statistics (the kernels' outputs, recorded in
-    ``ops.fused_bn``) against the plain sums of the same inputs."""
+    on the card (the kernels) and on the CPU (the plain versions), S and D
+    in ``siamese_stats`` mode: losses, S and D gradient norms, BN running
+    stats of S and D; and on the card each of the step's own BN statistics
+    (the kernels' outputs, recorded in ``ops.fused_bn``) against the plain
+    sums of the same inputs, one call per BN pass."""
     from fcdgan_tpu_torch.data.datasets import WHUPairDataset
     from fcdgan_tpu_torch.data.device_cache import DeviceWHUCache
     from fcdgan_tpu_torch.data.normalize import Normalize
@@ -1388,7 +1439,9 @@ def wsss_parity_phase(torch, root):
     vggp = vgg16_random_params(0)
     res = {}
     for dev in ("cuda", "cpu"):
-        net_g, net_s, net_d = (type(n)(3) for n in nets0)
+        net_g = Generator(3)
+        net_s = Segmentor(3, siamese_stats=siamese_stats)
+        net_d = Discriminator(3, siamese_stats=siamese_stats)
         for a, b in zip((net_g, net_s, net_d), nets0):
             a.load_state_dict(b.state_dict())
             a.to(dev)
@@ -1428,18 +1481,22 @@ def wsss_parity_phase(torch, root):
     loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
     norm_rel = max(abs(ng[k] - nc[k]) / nc[k] for k in nc)
     stats_err = (sg - sc).abs().max().item()
+    k = _model_counts(torch, WSSS_SIZE)
+    _, sb, _, db = _split_counts(k, siamese_stats == "split")
+    want_calls = (2 * sb + 3 * db,) * 2  # S on both pairs, D three times
     ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and stats_err <= 1e-4
-          and kernel_ratio <= 1.0 and n_calls == (45, 45))
-    phase("wsss_parity", {"pairs": 2, "losses_cuda": mg, "losses_cpu": mc,
-                          "grad_norms_cuda": ng, "grad_norms_cpu": nc,
-                          "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
-                          "bn_stats_max_abs": stats_err, "bn_kernel_calls": n_calls,
-                          "bn_kernel_err_over_tol": kernel_ratio,
-                          "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3,
-                                   "bn_stats_abs": 1e-4,
-                                   "bn_kernel": "1e-5 * sum|x| per channel"}, "ok": ok})
+          and kernel_ratio <= 1.0 and n_calls == want_calls)
+    name = "wsss_parity" if siamese_stats == "joint" else "wsss_split_parity"
+    phase(name, {"pairs": 2, "siamese_stats": siamese_stats, "losses_cuda": mg,
+                 "losses_cpu": mc, "grad_norms_cuda": ng, "grad_norms_cpu": nc,
+                 "loss_max_rel": loss_rel, "grad_norm_max_rel": norm_rel,
+                 "bn_stats_max_abs": stats_err, "bn_kernel_calls": n_calls,
+                 "bn_kernel_calls_derived": want_calls,
+                 "bn_kernel_err_over_tol": kernel_ratio,
+                 "tols": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "bn_stats_abs": 1e-4,
+                          "bn_kernel": "1e-5 * sum|x| per channel"}, "ok": ok})
     if not ok:
-        raise AssertionError(f"wsss parity: losses {loss_rel}, grad norms {norm_rel}, "
+        raise AssertionError(f"{name}: losses {loss_rel}, grad norms {norm_rel}, "
                              f"BN stats {stats_err}, BN kernels {kernel_ratio} x tol over "
                              f"{n_calls} calls")
 
@@ -1461,11 +1518,7 @@ def rsss_phase(torch, work):
                       region_expand=40, seed=3, dtype=np.uint16,
                       rects=((150, 180, 120, 90), (600, 420, 150, 210), (820, 760, 110, 140),
                              (300, 700, 90, 160)))
-    argv = ["--img-dir", root, "--out-g-model-dir", os.path.join(root, "GModel"),
-            "--compute-dtype", "bfloat16", "--init-batch-size", str(RSSS_INIT_BATCH),
-            "--batch-size", str(RSSS_BATCH), "--patch-size", f"{RSSS_PATCH},{RSSS_PATCH}",
-            "--init-num-epochs-g", str(RSSS_EPOCHS[0]), "--num-epochs", str(RSSS_EPOCHS[1]),
-            "--log-tensorboard", "false", "--progress", "false", "--ext", "_smoke"]
+    argv = rsss_args(root, "_smoke", RSSS_EPOCHS)
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
@@ -1532,6 +1585,17 @@ def rsss_phase(torch, work):
     if not all(checks.values()):
         raise AssertionError(f"rsss checks failed: {checks}")
     return launches, root, out
+
+
+def rsss_args(root, ext, epochs, *extra):
+    """demo_rsss over the OSCD layout at ``root`` at the rsss phase's
+    settings, ``epochs`` (G pretrain, adversarial); a later run reuses the
+    first run's GModel.pkl."""
+    return ["--img-dir", root, "--out-g-model-dir", os.path.join(root, "GModel"),
+            "--compute-dtype", "bfloat16", "--init-batch-size", str(RSSS_INIT_BATCH),
+            "--batch-size", str(RSSS_BATCH), "--patch-size", f"{RSSS_PATCH},{RSSS_PATCH}",
+            "--init-num-epochs-g", str(epochs[0]), "--num-epochs", str(epochs[1]),
+            "--log-tensorboard", "false", "--progress", "false", "--ext", ext, *extra]
 
 
 def _bn_stats(torch, *nets):
@@ -1669,12 +1733,13 @@ def rsss_parity_phase(torch, root):
                              f"{ssim_shapes}")
 
 
-def serve_whu_phase(torch, root, wsss):
+def serve_whu_phase(torch, root, wsss, siamese_stats="joint", modes=("train", "eval")):
     """tools.infer --mode whu over the wsss phase's 150 changed slices with
-    its SModel, batch 15: in bn_mode train (S's statistics per batch through
-    channel_sums) the density images within one grey level of the demo's
-    own train-mode inference (same batches, train-mode BN ignores the
-    running buffers), then in eval mode; launches from the batches."""
+    its SModel, batch 15, S in ``siamese_stats`` mode: in bn_mode train (S's
+    statistics per batch through channel_sums) the density images within
+    one grey level of the demo's own train-mode inference (same batches,
+    train-mode BN ignores the running buffers), then in eval mode; launches
+    from the batches."""
     import numpy as np
 
     from fcdgan_tpu_torch.data.raster import read_image
@@ -1684,18 +1749,20 @@ def serve_whu_phase(torch, root, wsss):
                 ref_dir=os.path.join(root, "Label"), label_dir=root)
     counters = kernel_counters()
     k = _model_counts(torch, WSSS_SIZE)
+    sc, sb, sp, _ = _split_counts(k, siamese_stats == "split")
     batches = math.ceil(WSSS_SLICES[0] / WSSS_BATCH)
     res, checks, total = {}, {}, collections.Counter()
-    for bn in ("train", "eval"):
+    for bn in modes:
         reset_launches(counters)
-        out = infer.run(infer.InferConfig(mode="whu", smodel=wsss["smodel_path"], bn_mode=bn,
-                                          batch_size=WSSS_BATCH, progress=False,
-                                          outdir=os.path.join(root, f"serve_{bn}"), **dirs))
+        out = infer.run(infer.InferConfig(
+            mode="whu", smodel=wsss["smodel_path"], bn_mode=bn, batch_size=WSSS_BATCH,
+            siamese_stats=siamese_stats, progress=False,
+            outdir=os.path.join(root, f"serve_{siamese_stats}_{bn}"), **dirs))
         launches, variants = launch_counts(counters)
         total.update(launches)
-        want = derived_serve_launches(counters, k, batches)
+        want = derived_serve_launches(counters, dict(k, s_convs=sc, s_pools=sp), batches)
         if bn == "train":
-            want["channel_sums"] = k["s_bns"] * batches
+            want["channel_sums"] = sb * batches
         names = sorted(os.listdir(out["density_dir"]))
         r = {"slices_per_s": out["slices_per_s"], "seconds": out["seconds"],
              "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
@@ -1712,9 +1779,11 @@ def serve_whu_phase(torch, root, wsss):
             r["byte_equal_to_demo"] = all(not lv.any() for lv in levels)
             checks["train_within_one_grey_level_of_demo"] = r["max_grey_level_diff_to_demo"] <= 1
         res[bn] = r
-    phase("serve_whu", {"slices": WSSS_SLICES[0], "batches": batches, **res, "checks": checks})
+    name = "serve_whu" if siamese_stats == "joint" else "serve_whu_split"
+    phase(name, {"slices": WSSS_SLICES[0], "batches": batches, "siamese_stats": siamese_stats,
+                 **res, "checks": checks})
     if not all(checks.values()):
-        raise AssertionError(f"serve_whu checks failed: {checks}")
+        raise AssertionError(f"{name} checks failed: {checks}")
     return dict(total)
 
 
@@ -2151,7 +2220,7 @@ def wsss_host_phase(torch, root, wsss):
         cfg = WSSSConfig(img_dir_x=dirs[0], img_dir_y=dirs[1], ref_dir=dirs[2], label_dir=root,
                          batch_size=WSSS_BATCH, unc_batch_size=WSSS_UNC_BATCH, slice_cache=sc)
         pair = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(0))
-        feeds[sc], cache, pl, ul = demo_wsss.slice_feed(cfg, pair, scaler, "cuda")
+        feeds[sc], _, cache, pl, ul = demo_wsss.slice_feed(cfg, pair, scaler, "cuda")
         loaders[sc] = (cache, list(pl), list(ul))
     cache = loaders["on"][0]
 
@@ -2304,6 +2373,390 @@ def serve_oscd_stream_phase(torch, root, rsss, fused_px_per_s):
     return runs[0][1]
 
 
+SPLIT_EPOCHS = (1, 1, 1)  # usss_split: G pretrain, S init, joint
+REMAT_STEPS = 10  # remat: timed joint steps of each run, after one warm step
+KERNEL_SYMBOLS = {"conv3x3": "conv3x3_wgmma_kernel", "pool_bwd": "pool_bwd_nhwc_kernel",
+                  "fused_ssim": "ssim_level_kernel", "channel_sums": "channel_sums_kernel",
+                  "phase_pool": "phase_pool_nhwc_kernel"}
+
+
+def _driver_checks(out, launches, variants, want, losses):
+    return {"losses_finite": bool(losses) and all(math.isfinite(v) for v in losses),
+            "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
+
+
+def usss_split_phase(torch, tdir, joint):
+    """demos.demo_usss with --siamese-stats split on the train phase's scene
+    and settings, 1 + 1 + 1 epochs and the fused inference: every artifact,
+    finite losses, density in [0, 1], each kernel's launches equal to the
+    count derived from the split model (S's encoder once per branch, in the
+    inference too), all conv3x3 on wgmma; the joint epoch's rate beside the
+    joint run's (the train phase, same call)."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.demos import demo_usss
+
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    out = demo_usss.main(train_args(tdir, "_split", SPLIT_EPOCHS, "--siamese-stats", "split"))
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    want, per_step = derived_launches(torch, out["tiles"], SPLIT_EPOCHS, split=True)
+    density = open_raster(out["density_path"]).read_block()[..., 0]
+    sec, jsec = out["epoch_seconds"], joint["epoch_seconds"]
+    losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
+    checks = {
+        "split": out["sstate"].siamese_stats == "split",
+        "artifacts": all(os.path.isfile(out[k]) for k in (
+            "density_path", "color_path", "para_path", "smodel_path", "gmodel_path")),
+        "epochs": [len(sec[p]) for p in ("g", "s", "joint")] == list(SPLIT_EPOCHS),
+        "density_in_0_1": bool(np.isfinite(density).all() and density.min() >= 0
+                               and density.max() <= 1),
+        **_driver_checks(out, launches, variants, want, losses)}
+    phase("usss_split", {
+        "seconds": seconds, "tiles": out["tiles"],
+        "epoch_seconds": {p: sec[p] for p in ("g", "s", "joint")},
+        "joint_epochs_per_s": 1.0 / sec["joint"][0],
+        "joint_mode_joint_epochs_per_s": {"first": 1.0 / jsec["joint"][0],
+                                          "warm": len(jsec["joint"][1:]) / sum(jsec["joint"][1:])},
+        "s_init_epochs_per_s": 1.0 / sec["s"][0],
+        "joint_mode_s_init_epochs_per_s": 1.0 / jsec["s"][0],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "derived_launches": want, "per_step": per_step,
+        "oa": float(out["evaluator"].Pixel_Accuracy()), "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"usss_split checks failed: {checks}")
+    return launches
+
+
+def remat_phase(torch, tdir):
+    """USSS joint steps on 10 tiles of the train phase's scene (full-width G
+    and S) with and without remat, from the same seeded weights: after one
+    step every BN's running statistics and counts of G and S (f32 within
+    1e-6, bf16 within 1e-4, the step-parity tolerance; counts exactly) and
+    the losses (relative, the same bounds); each step's launches against the
+    derived count (a remat step launches the forward kernels of G, S and
+    the loss stack's VGG pools again: its MS-SSIM, computed last without a
+    graph, is not recomputed); then, in bf16, the step ms over REMAT_STEPS
+    steps after a warm one and the peak device memory of each, in turns
+    (without, with, with, without)."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.train.optim import adam
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+    scaler = Normalize(*dataset_meanstd(os.path.join(tdir, "T1_stats.txt"),
+                                        os.path.join(tdir, "T2_stats.txt"), None))
+    ds = ScenePairDataset(os.path.join(tdir, "T1.tif"), os.path.join(tdir, "T2.tif"),
+                          ref_path=os.path.join(tdir, "ref.tif"), enhance=scaler,
+                          patch_size=(PATCH, PATCH), overlap_padding=(PAD, PAD))
+    cache = DeviceSceneCache(ds, scaler, "cuda")
+    db = cache.complete({"item": list(range(BATCH)), "weight": [1.0] * BATCH})
+    args = (db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+    torch.manual_seed(0)
+    nets0 = (Generator(3), Segmentor(3))
+    vgg = VGG16Weights(vgg16_random_params(0), "cuda")
+    counters = kernel_counters()
+    k = _model_counts(torch, PATCH)
+    _, per_step = derived_launches(torch, BATCH)
+    plain = {name: kinds.get("joint", 0) for name, kinds in per_step.items()}
+    again = {"conv3x3": k["g_convs"] + k["s_convs"], "channel_sums": k["g_bns"] + k["s_bns"],
+             "phase_pool": k["s_pools"] + k["vgg_pools"]}
+
+    def make(dtype, remat):
+        net_g, net_s = (type(n)(3, compute_dtype=dtype) for n in nets0)
+        for a, b in zip((net_g, net_s), nets0):
+            a.load_state_dict(b.state_dict())
+            a.cuda()
+        return USSSSteps(net_g, net_s, adam(net_g.parameters()), adam(net_s.parameters()), vgg,
+                         PerceptionConfig((29,), True,
+                                          dtype if dtype == torch.bfloat16 else None),
+                         0.4, 0.65, 0.0, ds.grid.interior_sizes(), (PAD, PAD), remat=remat)
+
+    runs, checks, launches_out = {}, {}, None
+    for dt_name, tol in (("float32", 1e-6), ("bfloat16", 1e-4)):
+        dtype = getattr(torch, dt_name)
+        res = {}
+        for remat in (False, True):
+            steps = make(dtype, remat)
+            reset_launches(counters)
+            m = steps.joint(*args)
+            torch.cuda.synchronize()
+            launches, _ = launch_counts(counters)
+            want = {n: plain[n] + (again.get(n, 0) if remat else 0) for n in plain}
+            checks[f"{dt_name}_{'remat' if remat else 'plain'}_launches"] = launches == want
+            if remat and dt_name == "bfloat16":
+                launches_out = launches
+            bufs = {f"{name}.{b}": v.detach().float().cpu()
+                    for name, net in (("G", steps.G), ("S", steps.S))
+                    for b, v in net.named_buffers()}
+            res[remat] = ({key: float(v) for key, v in m.items() if key != "confusion"},
+                          bufs, launches, want)
+            del steps, m
+            gc.collect()  # the steps' closures make a cycle: free its nets now
+        (m0, b0, l0, w0), (m1, b1, l1, w1) = res[False], res[True]
+        stat_err = max((b1[key] - v).abs().max().item() for key, v in b0.items()
+                       if not key.endswith("num_batches_tracked"))
+        counts_equal = all(int(b1[key]) == int(v) == 1 for key, v in b0.items()
+                           if key.endswith("num_batches_tracked"))
+        loss_rel = max(abs(m1[key] - m0[key]) / max(abs(m0[key]), 1e-12) for key in m0)
+        checks[f"{dt_name}_bn_stats"] = stat_err <= tol
+        checks[f"{dt_name}_counts_once"] = counts_equal
+        checks[f"{dt_name}_losses"] = loss_rel <= tol
+        runs[dt_name] = {"bn_stats_max_abs": stat_err, "loss_max_rel": loss_rel, "tol": tol,
+                         "launches_plain": l0, "launches_remat": l1,
+                         "derived_plain": w0, "derived_remat": w1}
+    timing = collections.defaultdict(list)
+    for remat in (False, True, True, False):
+        steps = make(torch.bfloat16, remat)
+        steps.joint(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            steps.joint(*args)
+        torch.cuda.synchronize()
+        key = "remat" if remat else "plain"
+        timing[f"{key}_step_ms"].append((time.perf_counter() - t0) / REMAT_STEPS * 1e3)
+        timing[f"{key}_peak_mem_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        del steps
+        gc.collect()
+    phase("remat", {"tiles": BATCH, **runs, **timing, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"remat checks failed: {checks}")
+    return launches_out
+
+
+def resume_phase(torch, tdir):
+    """demos.demo_usss on the train phase's scene with --checkpoint-every 1,
+    stopped after the S-init phase (1 + 1 + 0 epochs), then run again with
+    --resume and one joint epoch: the G pretrain and S init are skipped, the
+    restored state_dicts of S and G (parameters, BN buffers) and their Adam
+    states equal the saved files bit for bit, the resumed run's launches are
+    those of one joint epoch and the inference; the seconds of each save."""
+    import copy
+
+    from fcdgan_tpu_torch.demos import demo_usss
+    from fcdgan_tpu_torch.io.checkpoint import TrainCheckpointer
+
+    save_s, restored = [], {}
+    orig_save, orig_restore = TrainCheckpointer.maybe_save, TrainCheckpointer.restore
+
+    def timed_save(self, phase_name, epoch, **nets):
+        t0 = time.perf_counter()
+        if orig_save(self, phase_name, epoch, **nets):
+            save_s.append({"phase": phase_name, "nets": sorted(nets),
+                           "seconds": time.perf_counter() - t0})
+            return True
+        return False
+
+    def captured(self, nets):
+        meta = orig_restore(self, nets)
+        for name, (module, opt) in nets.items():
+            restored[name] = copy.deepcopy(
+                ({key: v.cpu() for key, v in module.state_dict().items()},
+                 opt.state_dict()))
+        return meta
+
+    counters = kernel_counters()
+    TrainCheckpointer.maybe_save, TrainCheckpointer.restore = timed_save, captured
+    try:
+        first = demo_usss.main(train_args(tdir, "_resume", (1, 1, 0), "--checkpoint-every", "1",
+                                          "--save-checkpoints", "false"))
+        ckdir = os.path.join(tdir, "resume_resume.ckpt")
+        saved = {name: torch.load(os.path.join(ckdir, f"{name}.pt"), map_location="cpu",
+                                  weights_only=True) for name in ("netG", "netS")}
+        with open(os.path.join(ckdir, "meta.json")) as f:
+            meta = json.load(f)
+        reset_launches(counters)
+        second = demo_usss.main(train_args(tdir, "_resume", (1, 1, 1), "--resume", "true",
+                                           "--save-checkpoints", "false"))
+        launches, variants = launch_counts(counters)
+    finally:
+        TrainCheckpointer.maybe_save, TrainCheckpointer.restore = orig_save, orig_restore
+    want, _ = derived_launches(torch, second["tiles"], (0, 0, 1))
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[key], b[key]) for key in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if hasattr(a, "dtype"):
+            return torch.equal(a.cpu(), b.cpu())
+        return a == b
+
+    bit_equal = {name: same(restored[name][0], saved[name]["state_dict"])
+                 and same(restored[name][1], saved[name]["optimizer"]) for name in saved}
+    sec = second["epoch_seconds"]
+    checks = {
+        "first_run_epochs": [len(first["epoch_seconds"][p]) for p in ("g", "s", "joint")]
+        == [1, 1, 0],
+        "meta": meta == {"phase": "s", "epoch": 0},
+        "skipped": [len(sec[p]) for p in ("g", "s", "joint")] == [0, 0, 1]
+        and second["start_epochs"] == {"g": 10**9, "s": 1, "joint": 0},
+        "restored_bit_equal": restored.keys() == saved.keys() and all(bit_equal.values()),
+        "adam_moments_saved": bool(saved["netS"]["optimizer"]["state"]),
+        "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
+    sizes = {name: os.path.getsize(os.path.join(ckdir, f"{name}.pt")) for name in saved}
+    shutil.rmtree(ckdir)
+    phase("resume", {"saves": save_s, "file_bytes": sizes, "bit_equal": bit_equal,
+                     "resumed_epoch_seconds": sec, "launches": launches,
+                     "derived_launches": want, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"resume checks failed: {checks}")
+    return launches
+
+
+def profile_phase(torch, tdir, work):
+    """demos.demo_usss under --profile-dir on the train phase's scene, one G
+    pretrain and one joint epoch (8 steps) and the fused inference: the
+    torch.profiler trace written into the directory holds a CUDA kernel
+    event of each hand-written kernel the run launched, by its symbol
+    (channel_sums and channel_sums_pair share channel_sums_kernel), and the
+    launches equal the derived counts."""
+    from fcdgan_tpu_torch.demos import demo_usss
+
+    prof = os.path.join(work, "profile")
+    counters = kernel_counters()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    out = demo_usss.main(train_args(tdir, "_prof", (1, 0, 1), "--profile-dir", prof,
+                                    "--save-checkpoints", "false"))
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    want, _ = derived_launches(torch, out["tiles"], (1, 0, 1))
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    events = collections.Counter()
+    if traces:
+        with open(os.path.join(prof, traces[0])) as f:
+            for e in json.load(f).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    name = str(e.get("name", "")).lower()
+                    for kname, sym in KERNEL_SYMBOLS.items():
+                        events[kname] += sym in name
+    launched = {kname for kname, n in launches.items() if n}
+    checks = {
+        "one_trace": len(traces) == 1,
+        "kernel_events": all(events["channel_sums" if kname == "channel_sums_pair" else kname]
+                             for kname in launched),
+        "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
+    trace_mb = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 1e6
+    shutil.rmtree(prof)
+    phase("profile", {"seconds": seconds, "trace_mb": trace_mb, "kernel_events": dict(events),
+                      "launches": launches, "derived_launches": want, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"profile checks failed: {checks}")
+    return launches
+
+
+def wsss_split_phase(torch, root, wsss):
+    """demos.demo_wsss with --siamese-stats split (S and D) on the wsss
+    phase's slices, one adversarial epoch (its GModel.pkl reused, so no G
+    pretrain), then the train-mode inference: the maps, finite losses, each
+    kernel's launches equal to the count derived from the split models, all
+    conv3x3 on wgmma; the adversarial epoch's rate beside the joint wsss
+    phase's (same call)."""
+    from fcdgan_tpu_torch.data.raster import read_image
+    from fcdgan_tpu_torch.demos import demo_wsss
+
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    out = demo_wsss.main(wsss_args(root, "_split", (WSSS_EPOCHS[0], 1), "--siamese-stats",
+                                   "split"))
+    seconds = time.perf_counter() - t0
+    launches, variants = launch_counts(counters)
+    want, per_step = derived_wsss_launches(torch, (0, 1), split=True)
+    names = sorted(os.listdir(out["density_dir"]))
+    losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
+    warm = wsss["epoch_seconds"]["adv"][1:]
+    checks = {
+        "split": out["sstate"].siamese_stats == out["dstate"].siamese_stats == "split",
+        "g_reused": out["g_pretrain_epochs"] == 0,
+        "maps": len(names) == WSSS_SLICES[0] and all(
+            read_image(os.path.join(out["density_dir"], n)).shape == (WSSS_SIZE, WSSS_SIZE, 1)
+            for n in names),
+        **_driver_checks(out, launches, variants, want, losses)}
+    phase("wsss_split", {
+        "seconds": seconds, "adv_epoch_seconds": out["epoch_seconds"]["adv"],
+        "adv_epochs_per_s": 1.0 / out["epoch_seconds"]["adv"][0],
+        "joint_mode_adv_epochs_per_s_warm": len(warm) / sum(warm),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "derived_launches": want, "per_step": per_step,
+        "oa": float(out["evaluator"].Pixel_Accuracy()), "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"wsss_split checks failed: {checks}")
+    return launches, out
+
+
+def wsss_eraser_run(torch, root, wsss):
+    """demos.demo_wsss with --random-eraser on the wsss phase's slices, one
+    adversarial epoch (GModel.pkl reused): the Python pair loader (feed
+    host), launches as derived; its rate beside the resident wsss phase's."""
+    from fcdgan_tpu_torch.demos import demo_wsss
+
+    counters = kernel_counters()
+    reset_launches(counters)
+    out = demo_wsss.main(wsss_args(root, "_eraser", (WSSS_EPOCHS[0], 1), "--random-eraser",
+                                   "true"))
+    launches, variants = launch_counts(counters)
+    want, _ = derived_wsss_launches(torch, (0, 1))
+    losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
+    warm = wsss["epoch_seconds"]["adv"][1:]
+    res = {"feed": out["feed"], "adv_epochs_per_s": 1.0 / out["epoch_seconds"]["adv"][0],
+           "resident_adv_epochs_per_s_warm": len(warm) / sum(warm),
+           "launches": launches, "derived_launches": want,
+           "checks": {"host_feed": out["feed"] == "host",
+                      **_driver_checks(out, launches, variants, want, losses)}}
+    return res
+
+
+def rsss_eraser_run(torch, root, rsss):
+    """demos.demo_rsss with --random-eraser on the rsss phase's scenes, one
+    adversarial epoch and its test evaluation (GModel.pkl reused): the train
+    list on BatchLoader (feed host), the test list on the native loader,
+    launches as derived; its rate beside the resident rsss phase's."""
+    from fcdgan_tpu_torch.demos import demo_rsss
+
+    counters = kernel_counters()
+    reset_launches(counters)
+    out = demo_rsss.main(rsss_args(root, "_eraser", (RSSS_EPOCHS[0], 1), "--random-eraser",
+                                   "true"))
+    launches, variants = launch_counts(counters)
+    want, _ = derived_rsss_launches(torch, out["tiles"], out["test_tiles"], (0, 1))
+    losses = [v for ph in out["epoch_metrics"].values() for m in ph
+              for key, v in m.items() if key != "f1"]
+    warm = rsss["epoch_seconds"]["adv"][1:]
+    res = {"feed": out["feed"], "test_feed": out["test_feed"],
+           "adv_epochs_per_s": 1.0 / out["epoch_seconds"]["adv"][0],
+           "resident_adv_epochs_per_s_warm": len(warm) / sum(warm),
+           "test_eval_seconds": out["epoch_seconds"]["test"],
+           "launches": launches, "derived_launches": want,
+           "checks": {"host_feed": out["feed"] == "host",
+                      **_driver_checks(out, launches, variants, want, losses)}}
+    return res
+
+
+def eraser_phase(wsss_run, rsss_run):
+    """The two --random-eraser runs: each kernel's launches summed."""
+    checks = {f"{mode}_{key}": ok for mode, run in (("wsss", wsss_run), ("rsss", rsss_run))
+              for key, ok in run["checks"].items()}
+    phase("eraser", {"wsss": wsss_run, "rsss": rsss_run, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"eraser checks failed: {checks}")
+    return {name: wsss_run["launches"][name] + rsss_run["launches"][name]
+            for name in wsss_run["launches"]}
+
+
 def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
     main path's working type in ``step``, each row times its count per step
@@ -2370,19 +2823,29 @@ def main():
                 "usss_window": usss_window_phase(torch, work, scene),
                 "usss_host": usss_host_phase(torch, work, scene)}
         torch.cuda.empty_cache()
-        launches, tdir = train_phase(torch, work)
+        launches, tdir, train = train_phase(torch, work)
         train_parity_phase(torch, tdir)
+        more["usss_split"] = usss_split_phase(torch, tdir, train)
+        train_parity_phase(torch, tdir, "split")
+        more["remat"] = remat_phase(torch, tdir)
+        more["resume"] = resume_phase(torch, tdir)
+        more["profile"] = profile_phase(torch, tdir, work)
         shutil.rmtree(tdir)
         wsss_launches, wdir, wsss = wsss_phase(torch, work)
         wsss_parity_phase(torch, wdir)
         serve_whu_launches = serve_whu_phase(torch, wdir, wsss)
         more["wsss_host"] = wsss_host_phase(torch, wdir, wsss)
+        more["wsss_split"], wsss_split = wsss_split_phase(torch, wdir, wsss)
+        wsss_parity_phase(torch, wdir, "split")
+        more["serve_whu_split"] = serve_whu_phase(torch, wdir, wsss_split, "split", ("train",))
+        wsss_eraser = wsss_eraser_run(torch, wdir, wsss)
         shutil.rmtree(wdir)
         rsss_launches, rdir, rsss = rsss_phase(torch, work)
         rsss_parity_phase(torch, rdir)
         serve_oscd_launches, oscd_px_per_s = serve_oscd_phase(torch, rdir, rsss)
         more["serve_oscd_stream"] = serve_oscd_stream_phase(torch, rdir, rsss, oscd_px_per_s)
         more["rsss_host"] = rsss_host_phase(torch, rdir, rsss)
+        more["eraser"] = eraser_phase(wsss_eraser, rsss_eraser_run(torch, rdir, rsss))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -8,11 +8,10 @@ the caller asks for ``cpu``). ``device_normalize`` (USSS) and
 feed normalizes on the device, and the host loaders run ``prefetch_depth``
 batches ahead on a background thread. The JAX fields ``platform`` and
 ``learning_rate`` (which no phase reads: the schedules set every rate)
-have no counterpart. Neither have ``eraser_regions`` and ``erase_thresh``,
-which only the unported ``random_eraser`` reads, so their flags are
-rejected.
+have no counterpart, so their flags are rejected.
 ``unported``, ``unported_wsss`` and ``unported_rsss`` name the options
-whose values the port does not run yet; the drivers raise ``NotImplementedError`` for them.
+whose values the port does not run: multi-device and multi-host training
+(ROADMAP.md A.4); the drivers raise ``NotImplementedError`` for them.
 ``parse_cli`` is a copy of the JAX package's (:290-345): every dataclass
 field becomes ``--field-name``, parsed by its resolved annotation (bools
 accept 1/true/yes, tuples are comma-separated and cast per element).
@@ -65,16 +64,16 @@ class USSSConfig:
     msssim_weights: Optional[Tuple[float, ...]] = None
     device: str = "cuda"            # 'cpu' only on request
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
-    siamese_stats: str = "joint"    # 'split' is not ported
-    density_dtype: str = "float32"  # quantized downloads are not ported
+    siamese_stats: str = "joint"    # 'split': per-branch BN statistics (the reference)
+    density_dtype: str = "float32"  # 'uint8'/'bfloat16': quantized density download
     # 'auto'/'on'/'off': ship raw integral tiles from the native loader and
     # normalize + pad-mask them on the device
     device_normalize: str = "auto"
     # 'auto' resident, else the rolling window, else the host loaders; 'on'
     # resident; 'window' the rolling window; 'off' the host loaders
     scene_cache: str = "auto"
-    tail: str = "auto"              # 'auto'/'short': the true-size last batch
-    remat: bool = False
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch; 'pad'
+    remat: bool = False             # recompute the forwards in the backward
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
     debug_nans: bool = False
     profile_dir: Optional[str] = None
@@ -129,17 +128,21 @@ class WSSSConfig:
     model_g_reuse: bool = True
     discriminator_continuous: bool = True
     stats_name: str = "stats"
-    random_assign: bool = False     # True is not ported
-    random_eraser: bool = False     # True is not ported
+    random_assign: bool = False     # a random unchanged partner per access
+    # random-erase augmentation of the unchanged training slices (the host
+    # loaders only: the resident cache and the native loaders refuse it)
+    random_eraser: bool = False
+    eraser_regions: int = 1
+    erase_thresh: float = 0.3
 
     msssim_weights: Optional[Tuple[float, ...]] = None
     device: str = "cuda"            # 'cpu' only on request
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
-    siamese_stats: str = "joint"    # 'split' is not ported
-    density_dtype: str = "float32"  # quantized downloads are not ported
+    siamese_stats: str = "joint"    # 'split': per-branch BN statistics (the reference)
+    density_dtype: str = "float32"  # accepted as in JAX; the slice images are uint8
     slice_cache: str = "auto"       # 'auto' resident else host loaders; 'on'; 'off'
-    tail: str = "auto"              # 'auto'/'short': the true-size last batch
-    remat: bool = False
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch; 'pad'
+    remat: bool = False             # recompute the forwards in the backward
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
     debug_nans: bool = False
     profile_dir: Optional[str] = None
@@ -202,16 +205,19 @@ class RSSSConfig:
     # Demo_RSSS.py:415, and the running statistics absorb the test batches)
     # or 'eval' (running-statistics evaluation)
     test_eval_bn: str = "train"
-    random_eraser: bool = False     # True is not ported
+    # random-erase augmentation of the training scenes (the host loaders only)
+    random_eraser: bool = False
+    eraser_regions: int = 1
+    erase_thresh: float = 0.3
 
     msssim_weights: Optional[Tuple[float, ...]] = None
     device: str = "cuda"            # 'cpu' only on request
     compute_dtype: str = "float32"  # 'bfloat16' = mixed precision (f32 losses/BN)
-    siamese_stats: str = "joint"    # 'split' is not ported
-    density_dtype: str = "float32"  # quantized downloads are not ported
+    siamese_stats: str = "joint"    # 'split': per-branch BN statistics (the reference)
+    density_dtype: str = "float32"  # 'uint8'/'bfloat16': quantized density download
     tile_cache: str = "auto"        # 'auto' resident else host loaders; 'on'; 'off'
-    tail: str = "auto"              # 'auto'/'short': the true-size last batch
-    remat: bool = False
+    tail: str = "auto"              # 'auto'/'short': the true-size last batch; 'pad'
+    remat: bool = False             # recompute the forwards in the backward
     ssim_metric: bool = True        # False skips the MS-SSIM metric (weight 0 only)
     debug_nans: bool = False
     profile_dir: Optional[str] = None
@@ -231,48 +237,44 @@ class RSSSConfig:
 
 
 def _unported_common(cfg) -> List[str]:
-    out = []
-    if cfg.siamese_stats != "joint":
-        out.append(f"--siamese-stats {cfg.siamese_stats}")
-    if cfg.remat:
-        out.append("--remat")
-    if cfg.tail not in ("auto", "short"):
-        out.append(f"--tail {cfg.tail}")
     if cfg.n_devices or cfg.coordinator_address or cfg.num_processes:
-        out.append("multi-device and multi-host training (--n-devices, "
-                   "--coordinator-address, --num-processes)")
-    if cfg.checkpoint_every or cfg.resume:
-        out.append("periodic checkpoints and resume (--checkpoint-every, --resume)")
-    if cfg.density_dtype != "float32":
-        out.append(f"--density-dtype {cfg.density_dtype}")
-    if cfg.profile_dir:
-        out.append("--profile-dir")
-    if cfg.debug_nans:
-        out.append("--debug-nans")
-    return out
+        return ["multi-device and multi-host training (--n-devices, "
+                "--coordinator-address, --num-processes)"]
+    return []
 
 
 def unported(cfg: USSSConfig) -> List[str]:
-    """The options of a USSS ``cfg`` whose values the port does not run yet."""
+    """The options of a USSS ``cfg`` whose values the port does not run."""
     return _unported_common(cfg)
 
 
 def unported_wsss(cfg: WSSSConfig) -> List[str]:
-    """The options of a WSSS ``cfg`` whose values the port does not run yet."""
-    out = _unported_common(cfg)
-    if cfg.random_assign:
-        out.append("--random-assign")
-    if cfg.random_eraser:
-        out.append("--random-eraser")
-    return out
+    """The options of a WSSS ``cfg`` whose values the port does not run."""
+    return _unported_common(cfg)
 
 
 def unported_rsss(cfg: RSSSConfig) -> List[str]:
-    """The options of an RSSS ``cfg`` whose values the port does not run yet."""
-    out = _unported_common(cfg)
-    if cfg.random_eraser:
-        out.append("--random-eraser")
-    return out
+    """The options of an RSSS ``cfg`` whose values the port does not run."""
+    return _unported_common(cfg)
+
+
+def check_training_options(cfg) -> None:
+    """The values of the training options every driver shares."""
+    for name, value, values in (("siamese-stats", cfg.siamese_stats, ("joint", "split")),
+                                ("tail", cfg.tail, ("auto", "short", "pad")),
+                                ("density-dtype", cfg.density_dtype,
+                                 ("float32", "uint8", "bfloat16"))):
+        if value not in values:
+            raise ValueError(f"--{name} must be one of {values}, not {value!r}")
+    if cfg.checkpoint_every < 0:
+        raise ValueError("--checkpoint-every must be 0 (off) or a positive epoch count")
+
+
+def batch_tail(cfg) -> str:
+    """The tail of the drivers' loaders (JAX demo_usss.py:112-122 on one
+    device): ``pad`` wrap-pads the last batch with weight-0 duplicates,
+    ``auto`` and ``short`` run it at its true size."""
+    return "pad" if cfg.tail == "pad" else "short"
 
 
 def _parse_bool(s: str) -> bool:

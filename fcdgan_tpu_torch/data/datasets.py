@@ -19,8 +19,16 @@ the port's drivers use:
   * ``WHUDataset`` (parity: WHU_Dataset, data_utils.py:449-563) and
     ``WHUPairDataset`` (WHU_Dataset_WSS, data_utils.py:570-625): the slice
     lists selected through ``label.txt``, the changed slices' references
-    binarized, and the changed/unchanged pairing of weak supervision. The
-    augmentation ``transforms`` are not ported.
+    binarized, and the changed/unchanged pairing of weak supervision, fixed
+    per epoch or a random partner per access (``random_assign``).
+
+Every dataset takes the JAX package's sync ``transforms`` (the random
+eraser of ``data/erasers.py``): called on x, then on y with the region the
+first call returned, so both dates lose the same rectangles. A transform
+draws from its own generator in item order, so the loaders that run them
+(``pipeline.BatchLoader`` and ``PairBatchLoader``, on their prefetch thread)
+consume it as the JAX ones do; the native loaders and the device caches
+refuse a dataset with a transform.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ class ScenePairDataset:
 
     def __init__(self, img_path_x, img_path_y, ref_path=None,
                  out_path: Optional[str] = None,
+                 transforms: Optional[Callable] = None,
                  enhance: Optional[Callable] = None,
                  patch_size: Tuple[int, int] = (200, 200),
                  overlap_padding: Tuple[int, int] = (10, 10)):
@@ -51,6 +60,7 @@ class ScenePairDataset:
         if (self.raster_x.xsize, self.raster_x.ysize, self.raster_x.nband) != (
                 self.raster_y.xsize, self.raster_y.ysize, self.raster_y.nband):
             raise ValueError("Image sizes don't match")
+        self.transforms = transforms
         self.enhance = enhance
         self.patch_size = patch_size
         self.overlap_padding = overlap_padding
@@ -88,6 +98,9 @@ class ScenePairDataset:
             y = self.enhance(y, switch=2)
         x = self._canvas(x, write)
         y = self._canvas(y, write)
+        if self.transforms is not None:
+            x, sync = self.transforms(x)
+            y, sync = self.transforms(y, sync)
         ref = np.zeros((self.patch_size[1], self.patch_size[0], 1), np.float32)
         if self.raster_ref is not None:
             r = self.raster_ref.read_block(*read).astype(np.float32)
@@ -163,10 +176,12 @@ class RegionScenePairDataset:
     ones kept (parity: GDALDataset_RSS, data_utils.py:273-282)."""
 
     def __init__(self, img_path_x, img_path_y, region_path=None, ref_path=None,
+                 transforms: Optional[Callable] = None,
                  enhance: Optional[Callable] = None,
                  patch_size: Tuple[int, int] = (200, 200),
                  overlap_padding: Tuple[int, int] = (10, 10)):
-        self.ds = ScenePairDataset(img_path_x, img_path_y, ref_path=ref_path, enhance=enhance,
+        self.ds = ScenePairDataset(img_path_x, img_path_y, ref_path=ref_path,
+                                   transforms=transforms, enhance=enhance,
                                    patch_size=patch_size, overlap_padding=overlap_padding)
         self.patch_size = patch_size
         self.raster_region = None
@@ -199,8 +214,7 @@ class OSCDDataset:
     directory ``{name}/ImagePair/`` holds two extension-less ENVI images
     whose names contain the scene name, a ``*-cm.tif`` reference and a
     ``*-region.tif`` region raster. ``scaler`` gives one normalizer per
-    scene; ``transforms`` one sync transform per scene, of which the port
-    runs none yet (the random eraser, ROADMAP.md queue A). Items are indexed
+    scene, ``transforms`` one sync transform (or None) per scene. Items are indexed
     globally by the cumulative scene lengths; ``write`` stitches into
     per-(filter, scene) rasters created at first use."""
 
@@ -218,9 +232,6 @@ class OSCDDataset:
             raise ValueError("The list of scaler doesn't match the file list")
         if transforms is not None and len(transforms) != len(filenames):
             raise ValueError("The list of transforms doesn't match the file list")
-        if transforms is not None and any(t is not None for t in transforms):
-            raise NotImplementedError("OSCD sync transforms (the random eraser) are not "
-                                      "ported yet; see ROADMAP.md (queue A)")
         self.dslist: List[RegionScenePairDataset] = []
         self.numlist: List[int] = []
         self.namelist: List[str] = []
@@ -241,6 +252,7 @@ class OSCDDataset:
             self.pathlist.append([px, py, pr, pg])
             ds = RegionScenePairDataset(
                 px, py, region_path=pg, ref_path=pr,
+                transforms=None if transforms is None else transforms[idx],
                 enhance=None if scaler is None else scaler[idx],
                 patch_size=patch_size, overlap_padding=overlap_padding)
             self.dslist.append(ds)
@@ -320,10 +332,11 @@ class WHUDataset:
     '-2' everything. An item is (x, y, ref, item, label): float32 (h, w, C)
     slices (normalized when ``scale`` is given), the (h, w, 1) reference
     binarized ``> 0`` for a slice labeled changed and zero otherwise, and
-    label.txt's three codes."""
+    label.txt's three codes; a sync ``transforms`` runs on x and y after
+    ``scale``."""
 
     def __init__(self, img_dir_x: str, img_dir_y: str, ref_dir: str, label_dir: str,
-                 label_selected: str = "-1", scale=None):
+                 label_selected: str = "-1", scale=None, transforms=None):
         with open(os.path.join(label_dir, "label.txt")) as f:
             self.label_list = [line.strip("\n").split(",") for line in f.readlines()]
         names_x = sorted(x for x in os.listdir(img_dir_x)
@@ -337,6 +350,7 @@ class WHUDataset:
         self.img_path_y = [os.path.join(img_dir_y, n) for n in names_y]
         self.ref_path = [os.path.join(ref_dir, n) for n in names_x]
         self.scale = scale
+        self.transforms = transforms
 
     @staticmethod
     def _is_image_file(filename: str) -> bool:
@@ -385,29 +399,37 @@ class WHUDataset:
             x = self.scale(x, switch=1)
             y = self.scale(y, switch=2)
         label = np.array([int(v) for v in self.label_list[item][1:]], np.int32)
+        if self.transforms is not None:
+            x, sync = self.transforms(x)
+            y, sync = self.transforms(y, sync)
         return x, y, ref, item, label
 
 
 class WHUPairDataset:
-    """Changed/unchanged pairing for weak supervision, with the JAX package's
-    ``random_assign=False`` (the drivers' setting; a random partner per item
-    is not ported).
+    """Changed/unchanged pairing for weak supervision (JAX datasets.py:
+    459-511).
 
-    The class with the larger count is the base; the smaller one is repeated
-    through shuffled orders that ``order_reset`` rebuilds each epoch. ``rng``
-    is consumed exactly as in the JAX package, so the same
-    ``random.Random(seed)`` gives the same pairs."""
+    The class with the larger count is the base. With ``random_assign=False``
+    (the drivers' default) the smaller one is repeated through shuffled
+    orders that ``order_reset`` rebuilds each epoch; with ``True`` each access
+    draws the partner uniformly from ``rng``. The sync ``transforms`` apply
+    to the unchanged slices only, as in the JAX package. ``rng`` is consumed
+    exactly as there, so the same ``random.Random(seed)`` gives the same
+    pairs."""
 
     def __init__(self, img_dir_x, img_dir_y, ref_dir, label_dir, scale=None,
+                 transforms=None, random_assign: bool = False,
                  rng: Optional[random.Random] = None):
         self.c_ds = WHUDataset(img_dir_x, img_dir_y, ref_dir, label_dir, scale=scale,
                                label_selected="1")
         self.nc_ds = WHUDataset(img_dir_x, img_dir_y, ref_dir, label_dir, scale=scale,
-                                label_selected="0")
+                                label_selected="0", transforms=transforms)
         self.c_len = len(self.c_ds)
         self.nc_len = len(self.nc_ds)
+        self.random_assign = random_assign
         self.rng = rng or random.Random()
-        self.order_reset()
+        if not random_assign:
+            self.order_reset()
 
     def order_reset(self):
         base, other = max(self.c_len, self.nc_len), min(self.c_len, self.nc_len)
@@ -425,4 +447,10 @@ class WHUPairDataset:
         return max(self.c_len, self.nc_len)
 
     def __getitem__(self, item: int):
-        return self.c_ds[self.c_order[item]], self.nc_ds[self.nc_order[item]]
+        if not self.random_assign:
+            item_c, item_nc = self.c_order[item], self.nc_order[item]
+        elif self.c_len > self.nc_len:
+            item_c, item_nc = item, self.rng.randint(0, self.nc_len - 1)
+        else:
+            item_nc, item_c = item, self.rng.randint(0, self.c_len - 1)
+        return self.c_ds[item_c], self.nc_ds[item_nc]

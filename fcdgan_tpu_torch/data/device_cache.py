@@ -89,9 +89,11 @@ class IndexPairBatchLoader(IndexBatchLoader):
     before the shuffle) resolved to (c_item, nc_item) table lookups."""
 
     def __init__(self, pair_ds, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 epoch_hook: Optional[Callable[[int], None]] = None):
+                 epoch_hook: Optional[Callable[[int], None]] = None, tail: str = "short"):
+        if pair_ds.random_assign:
+            raise ValueError("index pair loader requires random_assign=False")
         super().__init__(len(pair_ds), batch_size, shuffle=shuffle, seed=seed,
-                         epoch_hook=epoch_hook)
+                         epoch_hook=epoch_hook, tail=tail)
         self.pair_ds = pair_ds
 
     def __iter__(self):
@@ -165,6 +167,8 @@ class DeviceSceneCache:
     """Raw scene pair resident on ``device`` + gathered, normalized tiles."""
 
     def __init__(self, dataset, normalize, device):
+        if dataset.transforms is not None:
+            raise ValueError("DeviceSceneCache does not support sync transforms")
         if not self.fits(dataset):
             raise NotImplementedError(
                 f"the scene takes {self.scene_bytes(dataset) / 1e6:.0f} MB on the device, "
@@ -202,12 +206,12 @@ class DeviceSceneCache:
     @staticmethod
     def supports(dataset) -> bool:
         """Whether ``dataset`` can be served from a resident scene
-        (device_cache.py:318-329): a ``Normalize`` enhance or none (the
-        port's scene datasets take no sync transforms) and ``fits``.
-        Callers test it and stream the scene otherwise."""
+        (device_cache.py:318-329): a ``Normalize`` enhance or none, no sync
+        transform, and ``fits``. Callers test it and stream the scene
+        otherwise."""
         enhance = dataset.enhance
         return (enhance is None or isinstance(enhance, Normalize)) and \
-            DeviceSceneCache.fits(dataset)
+            dataset.transforms is None and DeviceSceneCache.fits(dataset)
 
     @staticmethod
     def scene_bytes(dataset) -> int:
@@ -243,10 +247,11 @@ class DeviceSceneCache:
         x, y, ref = self._gather(item, with_ref=True)
         return {"x": x, "y": y, "ref": ref, "item": item, "weight": weight}
 
-    def loader(self, batch_size: int, shuffle: bool = False,
-               seed: int = 0) -> IndexBatchLoader:
+    def loader(self, batch_size: int, shuffle: bool = False, seed: int = 0,
+               tail: str = "short") -> IndexBatchLoader:
         """Epoch batches over this scene's tiles, for ``complete``."""
-        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed)
+        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed,
+                                tail=tail)
 
     @torch.no_grad()
     def stitched_density_start(self, model, batch_size: int = 10,
@@ -367,6 +372,8 @@ class DeviceSceneWindowCache:
     def __init__(self, dataset, normalize, device):
         if normalize is not None and not isinstance(normalize, Normalize):
             raise ValueError("DeviceSceneWindowCache needs a Normalize enhance (or none)")
+        if dataset.transforms is not None:
+            raise ValueError("DeviceSceneWindowCache does not support sync transforms")
         grid = dataset.grid
         ph, pw = grid.canvas_shape()
         _, wp = grid.padded_shape()
@@ -464,10 +471,13 @@ class DeviceSceneWindowCache:
     @staticmethod
     def supports(dataset) -> bool:
         """Whether the scene can feed from a window (:665-678): a
-        ``Normalize`` enhance or none and one tile row within the budget.
-        It does not check whether the whole scene fits the resident cache."""
+        ``Normalize`` enhance or none, no sync transform, and one tile row
+        within the budget. It does not check whether the whole scene fits
+        the resident cache."""
         enhance = dataset.enhance
         if enhance is not None and not isinstance(enhance, Normalize):
+            return False
+        if dataset.transforms is not None:
             return False
         return DeviceSceneWindowCache._plan_rows(dataset) >= 1
 
@@ -797,6 +807,8 @@ class DeviceWHUCache:
             raise ValueError("DeviceWHUCache needs changed and unchanged slices")
         if normalize is not None and not isinstance(normalize, Normalize):
             raise ValueError("DeviceWHUCache needs a Normalize scale (or none)")
+        if pair_ds.random_assign or c_ds.transforms is not None or nc_ds.transforms is not None:
+            raise ValueError("DeviceWHUCache needs the fixed pairing and no sync transforms")
         from .raster import read_image
 
         if not self.supports(pair_ds):
@@ -833,11 +845,13 @@ class DeviceWHUCache:
     @staticmethod
     def supports(pair_ds) -> bool:
         """Whether the slices can be resident (device_cache.py:1236-1258): a
-        ``Normalize`` scale or none, the fixed pairing (no ``random_assign``),
-        both sides non-empty and the stacks within
+        ``Normalize`` scale or none, no sync transform, the fixed pairing (no
+        ``random_assign``), both sides non-empty and the stacks within
         ``FCDGAN_SLICE_CACHE_MAX_MB`` (default 4096)."""
         for ds in (pair_ds.c_ds, pair_ds.nc_ds):
             if ds.scale is not None and not isinstance(ds.scale, Normalize):
+                return False
+            if ds.transforms is not None:
                 return False
         if getattr(pair_ds, "random_assign", False) or not pair_ds.c_len or not pair_ds.nc_len:
             return False
@@ -904,12 +918,14 @@ class DeviceOSCDCache:
         if any(s.ds.enhance is not None and not isinstance(s.ds.enhance, Normalize)
                for s in dataset.dslist):
             raise ValueError("DeviceOSCDCache needs Normalize scalers")
+        if any(s.ds.transforms is not None for s in dataset.dslist):
+            raise ValueError("DeviceOSCDCache does not support sync transforms")
         if not self.supports(dataset):
             raise NotImplementedError(
                 f"the OSCD tiles take {self.tile_bytes(dataset) / 1e6:.0f} MB on the device, "
                 "past FCDGAN_TILE_CACHE_MAX_MB "
-                f"({_budget_mb('FCDGAN_TILE_CACHE_MAX_MB'):g} MB); the host tile loaders "
-                "are not ported yet (ROADMAP.md, queue A)")
+                f"({_budget_mb('FCDGAN_TILE_CACHE_MAX_MB'):g} MB): train them through the "
+                "host tile loaders (--tile-cache auto or off)")
         self.device = torch.device(device)
         grid0 = dataset.dslist[0].ds.grid
         ph, pw = grid0.canvas_shape()
@@ -960,8 +976,10 @@ class DeviceOSCDCache:
 
     @staticmethod
     def supports(dataset) -> bool:
-        """Whether the stacks of a non-empty list fit
+        """Whether the stacks of a non-empty list without sync transforms fit
         ``FCDGAN_TILE_CACHE_MAX_MB`` (device_cache.py:1414-1438)."""
+        if any(s.ds.transforms is not None for s in dataset.dslist):
+            return False
         return bool(len(dataset)) and DeviceOSCDCache.tile_bytes(dataset) <= \
             _budget_mb("FCDGAN_TILE_CACHE_MAX_MB") * 1e6
 
@@ -977,7 +995,8 @@ class DeviceOSCDCache:
         return {"x": x, "y": y, "ref": self._refs[item], "region": self._regions[item],
                 "item": item, "weight": weight}
 
-    def loader(self, batch_size: int, shuffle: bool = False,
-               seed: int = 0) -> IndexBatchLoader:
+    def loader(self, batch_size: int, shuffle: bool = False, seed: int = 0,
+               tail: str = "short") -> IndexBatchLoader:
         """Epoch batches over the tiles, for ``complete``."""
-        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed)
+        return IndexBatchLoader(self.n_tiles, batch_size, shuffle=shuffle, seed=seed,
+                                tail=tail)

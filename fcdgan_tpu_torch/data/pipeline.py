@@ -16,9 +16,12 @@ The native loaders assemble the same batches in the C++ thread pool of
 each tile's write window, and ``DeviceNormalizer`` normalizes and pad-masks
 them on the device), ``NativeOSCDBatchLoader`` (an RSSS scene list) and
 ``NativeWHUBatchLoader`` / ``NativeWHUPairBatchLoader`` (WHU slices). As in
-the JAX package they wrap-pad the tail with weight-0 duplicates. Callers
-pick one after its explicit check (``supports`` of the loader, or
-``native.can_open`` on the rasters), never by catching a loader's error.
+the JAX package they wrap-pad the tail with weight-0 duplicates, and they
+refuse a dataset with a sync transform (the random eraser) and a
+``random_assign`` pairing, which only the Python loaders run (JAX
+pipeline.py:191-192, 235, 293-294, 366-367, 430-431). Callers pick one
+after its explicit check (``supports`` of the loader), never by catching a
+loader's error.
 ``device_put_batch`` uploads a host batch through pinned memory with
 ``non_blocking`` copies.
 """
@@ -185,6 +188,8 @@ class NativeSceneBatchLoader(BatchLoader):
                  n_threads: Optional[int] = None, device_normalize: bool = False):
         from .. import native
 
+        if dataset.transforms is not None:
+            raise ValueError("native loader does not support sync transforms")
         stats = _normalize_stats(dataset.enhance)
         self._asm = native.NativePairAssembler(
             dataset.raster_x.path, dataset.raster_y.path, dataset.patch_size,
@@ -203,18 +208,27 @@ class NativeSceneBatchLoader(BatchLoader):
                          shuffle=shuffle, seed=seed)
 
     @staticmethod
+    def supports(dataset) -> bool:
+        """Whether the native library reads both rasters of a dataset without
+        a sync transform."""
+        from .. import native
+
+        return dataset.transforms is None and all(
+            native.can_open(r.path) for r in (dataset.raster_x, dataset.raster_y))
+
+    @staticmethod
     def supports_device_normalize(dataset) -> bool:
-        """Whether the dataset can ship raw tiles: the native library reads
-        both rasters, a ``Normalize`` enhance or none, and one shared
-        integral stored type (JAX pipeline.py:220-243)."""
+        """Whether the dataset can ship raw tiles: ``supports``, a
+        ``Normalize`` enhance or none, and one shared integral stored type
+        (JAX pipeline.py:220-243)."""
         from .. import native
         from .normalize import Normalize
 
         if dataset.enhance is not None and not isinstance(dataset.enhance, Normalize):
             return False
-        paths = (dataset.raster_x.path, dataset.raster_y.path)
-        if not all(native.can_open(p) for p in paths):
+        if not NativeSceneBatchLoader.supports(dataset):
             return False
+        paths = (dataset.raster_x.path, dataset.raster_y.path)
         codes = {native.NativeRaster(p).dtype_code for p in paths}
         return len(codes) == 1 and codes.pop() in native.INTEGRAL_CODES
 
@@ -247,6 +261,8 @@ class NativeOSCDBatchLoader(BatchLoader):
                  n_threads: Optional[int] = None):
         from .. import native
 
+        if any(s.ds.transforms is not None for s in dataset.dslist):
+            raise ValueError("native loader does not support sync transforms")
         self._assemblers = [
             native.NativePairAssembler(s.ds.raster_x.path, s.ds.raster_y.path,
                                        s.ds.patch_size, s.ds.overlap_padding,
@@ -257,12 +273,10 @@ class NativeOSCDBatchLoader(BatchLoader):
 
     @staticmethod
     def supports(dataset) -> bool:
-        """Whether the native library reads every scene's image pair."""
-        from .. import native
-
-        return bool(len(dataset)) and all(
-            native.can_open(p) for s in dataset.dslist
-            for p in (s.ds.raster_x.path, s.ds.raster_y.path))
+        """Whether the native library reads every scene's image pair and no
+        scene has a sync transform."""
+        return bool(len(dataset)) and all(NativeSceneBatchLoader.supports(s.ds)
+                                          for s in dataset.dslist)
 
     def __iter__(self) -> Iterator[Batch]:
         ds = self.dataset
@@ -303,6 +317,8 @@ class _WHUNativeReader:
         from .. import native
         from .normalize import Normalize
 
+        if ds.transforms is not None:
+            raise ValueError("native loader does not support sync transforms")
         self.mean_x = self.std_x = self.mean_y = self.std_y = None
         if ds.scale is not None:
             if not isinstance(ds.scale, Normalize):
@@ -346,10 +362,10 @@ class NativeWHUBatchLoader(BatchLoader):
     @staticmethod
     def supports(ds) -> bool:
         """Whether the native library reads a WHU slice set (its first slice;
-        a PNG set goes through the Python loaders)."""
+        a PNG set goes through the Python loaders) without a sync transform."""
         from .. import native
 
-        return bool(len(ds)) and native.can_open(ds.img_path_x[0])
+        return bool(len(ds)) and ds.transforms is None and native.can_open(ds.img_path_x[0])
 
     def __iter__(self) -> Iterator[Batch]:
         for idx, weight in self._index_batches():
@@ -364,12 +380,21 @@ class NativeWHUPairBatchLoader(BatchLoader):
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  n_threads: Optional[int] = None, **kw):
+        if dataset.random_assign:
+            raise ValueError("native pair loader requires random_assign=False")
         self._pair = dataset
         self._c = _WHUNativeReader(dataset.c_ds, n_threads)
         self._nc = _WHUNativeReader(dataset.nc_ds, n_threads)
         fields = ("x", "y", "ref", "item", "label")
         super().__init__(dataset, batch_size, fields=tuple(f"c_{f}" for f in fields)
                          + tuple(f"nc_{f}" for f in fields), shuffle=shuffle, seed=seed, **kw)
+
+    @staticmethod
+    def supports(pair_ds) -> bool:
+        """Whether the native library reads both sides of a ``WHUPairDataset``
+        paired by table (no ``random_assign``)."""
+        return not pair_ds.random_assign and all(
+            NativeWHUBatchLoader.supports(ds) for ds in (pair_ds.c_ds, pair_ds.nc_ds))
 
     def __iter__(self) -> Iterator[Batch]:
         for idx, weight in self._index_batches():

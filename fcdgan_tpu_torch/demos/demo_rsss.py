@@ -11,15 +11,25 @@ and a color raster per test scene (``{scene}/ImagePair/density{ext}`` and
 ``color{ext}``, the color raster coded {0 TN, 1 FN, 2 FP, 3 TP}) ->
 ``Para.txt`` and ``SModel.pkl`` / ``DModel.pkl`` (``{img_dir}/model{ext}``)
 and ``GModel.pkl`` (``out_g_model_dir``), reference state_dicts. The
-inference runs synchronously.
+inference runs synchronously; ``--density-dtype uint8|bfloat16`` quantizes
+its downloads.
 
 The feed is the JAX driver's choice (demo_rsss.py:95-135), named in the
-result's ``feed``: ``resident`` (the raw tile stacks on the device,
-``--tile-cache auto|on`` within ``FCDGAN_TILE_CACHE_MAX_MB``), else
+result's ``feed`` (the train list) and ``test_feed``: ``resident`` (the raw
+tile stacks of both lists on the device, ``--tile-cache auto|on`` within
+``FCDGAN_TILE_CACHE_MAX_MB``), else, each list on its own,
 ``NativeOSCDBatchLoader`` (``native``; its tails are wrap-padded with
 weight-0 duplicates, which train-mode BN sees in the G pretrain and the
 adversarial steps, as in the JAX package; the test evaluation trims them),
-else ``BatchLoader`` (``host``).
+else ``BatchLoader`` (``host``). ``--random-eraser`` erases the train
+scenes' tiles on ``BatchLoader`` only: the caches and the native loader
+refuse a list with a sync transform.
+
+The training options are the JAX driver's (see ``demo_usss``):
+``--siamese-stats split`` (here for S and D), ``--remat``, ``--tail pad``,
+``--checkpoint-every`` / ``--resume`` (``{img_dir}/model{ext}/resume.ckpt``,
+saved after each epoch's test evaluation), ``--profile-dir`` and
+``--debug-nans``.
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -43,25 +53,28 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..config import RSSSConfig, parse_cli, unported_rsss
+from ..config import RSSSConfig, batch_tail, check_training_options, parse_cli, unported_rsss
 from ..data.datasets import OSCDDataset, ScenePairDataset
+from ..data.erasers import build_eraser
 from ..data.device_cache import DeviceOSCDCache
 from ..data.normalize import Normalize
 from ..data.pipeline import BatchLoader, NativeOSCDBatchLoader, device_put_batch, prefetch
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap_gdal
 from ..eval.evaluator import Evaluator
-from ..io.checkpoint import model_g_reuse, save_net
+from ..io.checkpoint import TrainCheckpointer, model_g_reuse, save_net
 from ..io.records import ScalarWriter, segmentation_summary, write_para_txt
 from ..models.discriminator import Discriminator
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
 from ..train import schedules
-from ..train.loops import EpochAverages, Progress, accuracy_line
+from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
 from ..train.steps import PerceptionConfig, RSSSSteps
 from ..utils.device import resolve_device
+from ..utils.download import dequantize, quantize
+from ..utils.timing import maybe_profile
 from .demo_usss import _DTYPES, _log_accuracy
 
 G_KEYS = ("g_loss", "generator_loss", "perception_loss", "ssim_loss")
@@ -73,10 +86,11 @@ def _check_supported(cfg: RSSSConfig) -> None:
     missing = unported_rsss(cfg)
     if missing:
         raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch yet: {}; see ROADMAP.md (queue A, "
-            "'The rest of training')".format("; ".join(missing)))
+            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
+            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
+    check_training_options(cfg)
     if cfg.test_eval_bn not in ("train", "eval"):
         raise ValueError("--test-eval-bn must be 'train' or 'eval'")
     if cfg.tile_cache not in ("auto", "on", "off"):
@@ -87,28 +101,30 @@ FIELDS = ("x", "y", "item", "ref", "region")
 
 
 def tile_feed(cfg: RSSSConfig, dataset, test_dataset, device):
-    """(feed name, train cache, test cache) of the JAX driver's choice
-    (demo_rsss.py:95-135): the resident tile stacks of both lists, else
-    ``NativeOSCDBatchLoader``, else ``BatchLoader`` (no caches).
-    ``--tile-cache on`` raises when the stacks cannot be resident."""
+    """(train feed, test feed, train cache, test cache) of the JAX driver's
+    choice (demo_rsss.py:95-135): the resident tile stacks of both lists,
+    else for each list ``NativeOSCDBatchLoader``, else ``BatchLoader`` (no
+    caches). ``--tile-cache on`` raises when the stacks cannot be resident."""
     if (cfg.tile_cache != "off" and DeviceOSCDCache.supports(dataset)
             and DeviceOSCDCache.supports(test_dataset)):
-        return ("resident", DeviceOSCDCache(dataset, device),
+        return ("resident", "resident", DeviceOSCDCache(dataset, device),
                 DeviceOSCDCache(test_dataset, device))
     if cfg.tile_cache == "on":
-        raise RuntimeError("--tile-cache on: needs the tiles within FCDGAN_TILE_CACHE_MAX_MB")
-    if all(NativeOSCDBatchLoader.supports(ds) for ds in (dataset, test_dataset)):
-        return "native", None, None
-    return "host", None, None
+        raise RuntimeError("--tile-cache on: needs no --random-eraser and the tiles within "
+                           "FCDGAN_TILE_CACHE_MAX_MB")
+    feeds = ["native" if NativeOSCDBatchLoader.supports(ds) else "host"
+             for ds in (dataset, test_dataset)]
+    return feeds[0], feeds[1], None, None
 
 
-def _loader(feed: str, ds, cache, batch_size: int, shuffle: bool, seed: int):
+def _loader(feed: str, ds, cache, batch_size: int, shuffle: bool, seed: int,
+            tail: str = "short"):
     """The epoch batches of ``ds`` on its feed."""
     if cache is not None:
-        return cache.loader(batch_size, shuffle=shuffle, seed=seed)
+        return cache.loader(batch_size, shuffle=shuffle, seed=seed, tail=tail)
     if feed == "native":
         return NativeOSCDBatchLoader(ds, batch_size, shuffle=shuffle, seed=seed)
-    return BatchLoader(ds, batch_size, fields=FIELDS, shuffle=shuffle, seed=seed, tail="short")
+    return BatchLoader(ds, batch_size, fields=FIELDS, shuffle=shuffle, seed=seed, tail=tail)
 
 
 def _accuracy(ev: Evaluator) -> Dict[str, float]:
@@ -133,6 +149,12 @@ def _scene_scalers(img_dir: str, txt_name: str, patch_size, stats_name: str) -> 
     return scalers
 
 
+def run_profiled(cfg) -> Dict:
+    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set."""
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return run(cfg)
+
+
 def run(cfg: RSSSConfig) -> Dict:
     _check_supported(cfg)
     device = resolve_device(cfg.device)
@@ -143,17 +165,24 @@ def run(cfg: RSSSConfig) -> Dict:
     os.makedirs(cfg.out_g_model_dir, exist_ok=True)
 
     # -- datasets with per-scene normalizers and their feed (Demo_RSSS.py:75-134)
-    def scene_list(txt_name):
+    # the random eraser on the train scenes only (Demo_RSSS.py:96,128 wiring)
+    eraser = build_eraser(cfg.random_eraser, cfg.eraser_regions, cfg.erase_thresh, cfg.seed)
+
+    def scene_list(txt_name, transform=None):
         scalers = _scene_scalers(cfg.img_dir, txt_name, cfg.patch_size, cfg.stats_name)
-        return OSCDDataset(cfg.img_dir, txt_name, scaler=scalers, patch_size=cfg.patch_size,
+        return OSCDDataset(cfg.img_dir, txt_name, scaler=scalers,
+                           transforms=[transform] * len(scalers), patch_size=cfg.patch_size,
                            overlap_padding=cfg.overlap_padding)
 
-    dataset, test_dataset = scene_list(cfg.txt_name), scene_list(cfg.test_txt_name)
+    dataset, test_dataset = scene_list(cfg.txt_name, eraser), scene_list(cfg.test_txt_name)
     total, total_test = len(dataset), len(test_dataset)
-    feed, train_cache, test_cache = tile_feed(cfg, dataset, test_dataset, device)
-    init_loader = _loader(feed, dataset, train_cache, cfg.init_batch_size, True, cfg.seed)
-    train_loader = _loader(feed, dataset, train_cache, cfg.batch_size, True, cfg.seed + 1)
-    test_loader = _loader(feed, test_dataset, test_cache, cfg.batch_size, False, cfg.seed)
+    feed, test_feed, train_cache, test_cache = tile_feed(cfg, dataset, test_dataset, device)
+    tail = batch_tail(cfg)
+    init_loader = _loader(feed, dataset, train_cache, cfg.init_batch_size, True, cfg.seed, tail)
+    train_loader = _loader(feed, dataset, train_cache, cfg.batch_size, True, cfg.seed + 1,
+                           tail)
+    test_loader = _loader(test_feed, test_dataset, test_cache, cfg.batch_size, False,
+                          cfg.seed, tail)
 
     def put(batch, cache):
         if cache is not None:
@@ -163,16 +192,16 @@ def run(cfg: RSSSConfig) -> Dict:
     # -- models / optimizers (Demo_RSSS.py:137-158) --------------------------
     nband = dataset.dslist[0].ds.raster_x.nband
     net_g = Generator(nband, compute_dtype=dtype)
-    net_s = Segmentor(nband, compute_dtype=dtype)
-    net_d = Discriminator(nband, compute_dtype=dtype)
+    net_s = Segmentor(nband, compute_dtype=dtype, siamese_stats=cfg.siamese_stats)
+    net_d = Discriminator(nband, compute_dtype=dtype, siamese_stats=cfg.siamese_stats)
     init_epochs_g = model_g_reuse(cfg.out_g_model_dir, net_g, cfg.init_num_epochs_g,
                                   cfg.model_g_reuse)
     for net in (net_g, net_s, net_d):
         net.to(device)
     vgg = VGG16Weights(load_vgg16_params(cfg.vgg_npz, require=cfg.require_vgg), device)
+    opts = adam(net_g.parameters()), rmsprop(net_s.parameters()), rmsprop(net_d.parameters())
     steps = RSSSSteps(
-        net_g, net_s, net_d, adam(net_g.parameters()), rmsprop(net_s.parameters()),
-        rmsprop(net_d.parameters()), vgg,
+        net_g, net_s, net_d, *opts, vgg,
         PerceptionConfig(select_feature_layers(cfg.perception_layer),
                          cfg.perception_per_band,
                          dtype=dtype if dtype == torch.bfloat16 else None),
@@ -180,14 +209,26 @@ def run(cfg: RSSSConfig) -> Dict:
         cfg.d_weight, cfg.r_weight, dataset.interior_sizes(), cfg.overlap_padding,
         cfg.gt_map, cfg.pre_map, cfg.prob_thresh, cfg.discriminator_continuous,
         cfg.msssim_weights, test_interior_sizes=test_dataset.interior_sizes(),
-        ssim_metric=cfg.ssim_metric)
+        ssim_metric=cfg.ssim_metric, remat=cfg.remat)
+    g_nets = {"netG": (net_g, opts[0])}
+    adv_nets = {**g_nets, "netS": (net_s, opts[1]), "netD": (net_d, opts[2])}
+    ckpt = TrainCheckpointer(os.path.join(out_dir, "resume.ckpt"), cfg.checkpoint_every)
+    starts = {"g": 0, "adv": 0}
+    if cfg.resume and ckpt.exists():
+        meta = ckpt.restore(adv_nets)
+        starts = TrainCheckpointer.start_epochs(meta, ("g", "adv"))
+        print("Resuming from phase {} epoch {}".format(meta["phase"], meta["epoch"]))
+
+    def checked(step, phase, i, *nets):
+        return nan_checked(step, phase, i, *nets) if cfg.debug_nans else step()
+
     writer = ScalarWriter(comment="RSSS_OSCD{}".format(cfg.ext), enabled=cfg.log_tensorboard)
     seconds = {"g": [], "adv": [], "test": [], "infer": 0.0}
     metrics = {"g": [], "adv": [], "test": []}
 
     # -- phase 1: G pretrain with region masks (Demo_RSSS.py:173-238) --------
     print("Start Generator Training")
-    for i in range(init_epochs_g):
+    for i in range(starts["g"], init_epochs_g):
         t0 = time.perf_counter()
         lr = schedules.G_PRETRAIN(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total)
@@ -196,7 +237,8 @@ def run(cfg: RSSSConfig) -> Dict:
             prog.start_batch()
             db = put(batch, train_cache)
             bw = float(batch["weight"].sum())
-            av.update(steps.g_pretrain(db["x"], db["y"], db["region"], db["weight"], lr), bw)
+            av.update(checked(lambda: steps.g_pretrain(db["x"], db["y"], db["region"],
+                                                       db["weight"], lr), "g", i, net_g), bw)
             prog.end_batch(int(bw))
         prog.finish()
         print("Epochs: {}/{}, g_loss: {:.4f}, generator_loss: {:.4f}, "
@@ -205,13 +247,14 @@ def run(cfg: RSSSConfig) -> Dict:
                   av["perception_loss"], av["ssim_loss"]))
         for k in G_KEYS:
             writer.add_scalar(k, av[k], i)
+        ckpt.maybe_save("g", i, **g_nets)
         seconds["g"].append(time.perf_counter() - t0)
         metrics["g"].append(av.as_dict())
 
     # -- phase 2: adversarial + per-epoch test eval (Demo_RSSS.py:244-447) ---
     print("Start Adversarial Training")
     test_acc = None
-    for i in range(cfg.num_epochs):
+    for i in range(starts["adv"], cfg.num_epochs):
         t0 = time.perf_counter()
         lr_s = schedules.S_ADV_RSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         lr_d = schedules.D_ADV_RSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
@@ -221,8 +264,9 @@ def run(cfg: RSSSConfig) -> Dict:
             prog.start_batch()
             db = put(batch, train_cache)
             bw = float(batch["weight"].sum())
-            av.update(steps.adversarial(db["x"], db["y"], db["ref"], db["region"], db["item"],
-                                        db["weight"], lr_s, lr_d), bw)
+            av.update(checked(lambda: steps.adversarial(
+                db["x"], db["y"], db["ref"], db["region"], db["item"], db["weight"], lr_s,
+                lr_d), "adv", i, net_s, net_d), bw)
             prog.end_batch(int(bw))
         prog.finish()
         ev = av.evaluator(len(cfg.gt_map))
@@ -260,6 +304,7 @@ def run(cfg: RSSSConfig) -> Dict:
             writer.add_scalar(k, av[k], step)
         _log_accuracy(writer, ev, step)
         _log_accuracy(writer, test_acc, step, prefix="Test ")
+        ckpt.maybe_save("adv", i, **adv_nets)
         seconds["test"].append(time.perf_counter() - t0)
         metrics["test"].append(_accuracy(test_acc))
 
@@ -272,7 +317,8 @@ def run(cfg: RSSSConfig) -> Dict:
     color_name = "{}{}".format(cfg.out_name_binary, cfg.ext)
     for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
         db = put(batch, test_cache)
-        cmap = steps.infer(db["x"], db["y"]).cpu().numpy()
+        cmap = dequantize(quantize(steps.infer(db["x"], db["y"]), cfg.density_dtype).cpu(),
+                          cfg.density_dtype)
         ref = db["ref"].cpu().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
@@ -333,11 +379,13 @@ def run(cfg: RSSSConfig) -> Dict:
         "tiles": total,
         "test_tiles": total_test,
         "feed": feed,
+        "test_feed": test_feed,
+        "start_epochs": starts,
     }
 
 
 def main(argv=None) -> Dict:
-    return run(parse_cli(RSSSConfig, argv))
+    return run_profiled(parse_cli(RSSSConfig, argv))
 
 
 if __name__ == "__main__":

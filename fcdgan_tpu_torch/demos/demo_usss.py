@@ -15,7 +15,15 @@ the native loader's raw tiles normalized on the device (``native_raw``,
 ``--device-normalize auto|on``) or its float32 tiles (``native``), else the
 Python ``BatchLoader`` (``host``). The caches run the fused stitched
 inference; the host feeds run the tile loop, whose downloads a writer thread
-stitches.
+stitches; ``--density-dtype uint8|bfloat16`` quantizes either download.
+
+The training options are the JAX driver's: ``--siamese-stats split``
+(per-branch BN statistics), ``--remat``, ``--tail pad`` (the last batch
+wrap-padded with weight-0 duplicates, which train-mode BN sees),
+``--checkpoint-every N`` / ``--resume`` (``io.checkpoint.TrainCheckpointer``
+in ``{outdir}/resume{ext}.ckpt``: completed epochs are skipped),
+``--profile-dir`` (a ``torch.profiler`` trace of the whole run) and
+``--debug-nans`` (``train.loops.nan_checked``).
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..config import USSSConfig, parse_cli, unported
+from ..config import USSSConfig, batch_tail, check_training_options, parse_cli, unported
 from ..data.datasets import ScenePairDataset
 from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
 from ..data.normalize import Normalize
@@ -50,18 +58,19 @@ from ..eval.changemap import write_changemap_gdal
 from ..eval.evaluator import Evaluator
 from ..eval.inference import nhwc_infer, run_overlapped
 from ..eval.roc import RocCurve
-from ..io.checkpoint import save_net
+from ..io.checkpoint import TrainCheckpointer, save_net
 from ..io.records import (ScalarWriter, segmentation_summary, timestamped_para_path,
                           write_para_txt)
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
 from ..train import schedules
-from ..train.loops import EpochAverages, Progress, accuracy_line
+from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam
 from ..train.steps import PerceptionConfig, USSSSteps
 from ..utils.device import resolve_device
-from ..utils.download import Download
+from ..utils.download import Download, dequantize, quantize
+from ..utils.timing import maybe_profile
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 LOSS_KEYS = ("NetLoss", "generator_loss", "l1_loss", "perception_loss", "ssim_loss")
@@ -73,10 +82,11 @@ def _check_supported(cfg: USSSConfig) -> None:
     missing = unported(cfg)
     if missing:
         raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch yet: {}; see ROADMAP.md (queue A, "
-            "'Training: what the USSS slice leaves out')".format("; ".join(missing)))
+            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
+            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
+    check_training_options(cfg)
     for name, value, values in (("scene-cache", cfg.scene_cache, ("auto", "on", "window", "off")),
                                 ("device-normalize", cfg.device_normalize, ("auto", "on", "off"))):
         if value not in values:
@@ -102,9 +112,10 @@ def scene_feed(cfg: USSSConfig, dataset, scaler, device):
             "slab) within FCDGAN_SCENE_CACHE_MAX_MB / FCDGAN_SCENE_WINDOW_MB".format(
                 cfg.scene_cache))
     if cache is not None:
-        return feed, cache, cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed), None
+        return feed, cache, cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                         tail=batch_tail(cfg)), None
     placer = None
-    if all(native.can_open(r.path) for r in (dataset.raster_x, dataset.raster_y)):
+    if NativeSceneBatchLoader.supports(dataset):
         raw = (cfg.device_normalize != "off"
                and NativeSceneBatchLoader.supports_device_normalize(dataset))
         loader = NativeSceneBatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
@@ -114,7 +125,7 @@ def scene_feed(cfg: USSSConfig, dataset, scaler, device):
             placer = DeviceNormalizer(scaler, dataset.size()[2], device)
     else:
         loader = BatchLoader(dataset, cfg.batch_size, fields=("x", "y", "item", "ref"),
-                             shuffle=True, seed=cfg.seed, tail="short")
+                             shuffle=True, seed=cfg.seed, tail=batch_tail(cfg))
         feed = "host"
     if cfg.device_normalize == "on" and feed != "native_raw":
         raise RuntimeError("--device-normalize on: needs the native loader and a shared "
@@ -131,6 +142,13 @@ def _log_accuracy(writer: ScalarWriter, ev: Evaluator, step: int, prefix: str = 
                        ("Kappa Coefficient:", ev.Pixel_Kappa()),
                        ("F1", ev.Pixel_F1_score()), ("mIOU", miou), ("cIOU", ciou)):
         writer.add_scalar(prefix + tag, value, step)
+
+
+def run_profiled(cfg) -> Dict:
+    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set
+    (JAX demo_usss.py:469-474)."""
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return run(cfg)
 
 
 def run(cfg: USSSConfig) -> Dict:
@@ -170,16 +188,27 @@ def run(cfg: USSSConfig) -> Dict:
     # -- models / steps (Demo_USSS.py:110-122) -------------------------------
     nband = dataset.size()[2]
     net_g = Generator(nband, compute_dtype=dtype).to(device)
-    net_s = Segmentor(nband, compute_dtype=dtype).to(device)
+    net_s = Segmentor(nband, compute_dtype=dtype, siamese_stats=cfg.siamese_stats).to(device)
     vgg = VGG16Weights(load_vgg16_params(cfg.vgg_npz, require=cfg.require_vgg), device)
+    opt_g, opt_s = adam(net_g.parameters()), adam(net_s.parameters())
     steps = USSSSteps(
-        net_g, net_s, adam(net_g.parameters()), adam(net_s.parameters()), vgg,
+        net_g, net_s, opt_g, opt_s, vgg,
         PerceptionConfig(select_feature_layers(cfg.perception_layer),
                          cfg.perception_per_band,
                          dtype=dtype if dtype == torch.bfloat16 else None),
         cfg.perception_weight, cfg.l1_weight, cfg.ssim_weight,
         dataset.grid.interior_sizes(), cfg.overlap_padding, cfg.gt_map, cfg.pre_map,
-        cfg.prob_thresh, cfg.msssim_weights, ssim_metric=cfg.ssim_metric)
+        cfg.prob_thresh, cfg.msssim_weights, ssim_metric=cfg.ssim_metric, remat=cfg.remat)
+    nets = {"g": {"netG": (net_g, opt_g)},
+            "s": {"netG": (net_g, opt_g), "netS": (net_s, opt_s)}}
+    nets["joint"] = nets["s"]
+    ckpt = TrainCheckpointer(os.path.join(outdir, "resume{}.ckpt".format(cfg.ext)),
+                             cfg.checkpoint_every)
+    starts = {"g": 0, "s": 0, "joint": 0}
+    if cfg.resume and ckpt.exists():
+        meta = ckpt.restore(nets["s"])
+        starts = TrainCheckpointer.start_epochs(meta, ("g", "s", "joint"))
+        print("Resuming from phase {} epoch {}".format(meta["phase"], meta["epoch"]))
     writer = ScalarWriter(comment="USSS{}".format(cfg.ext), enabled=cfg.log_tensorboard)
     seconds = {"g": [], "s": [], "joint": [], "infer": 0.0}
     metrics = {"g": [], "s": [], "joint": []}
@@ -188,10 +217,15 @@ def run(cfg: USSSConfig) -> Dict:
         t0 = time.perf_counter()
         av = EpochAverages(total)
         prog = Progress(total, lambda: n_epochs - 1 - i, cfg.progress)
+        stepped = [net for net, _ in nets[phase].values()]
         for batch in prefetch(iter(loader), cfg.prefetch_depth):
             prog.start_batch()
             db = put(batch)
-            av.update(step_fn(db), float(batch["weight"].sum()))
+            if cfg.debug_nans:
+                m = nan_checked(lambda: step_fn(db), phase, i, *stepped)
+            else:
+                m = step_fn(db)
+            av.update(m, float(batch["weight"].sum()))
             prog.end_batch(int(batch["weight"].sum()))
         prog.finish()
         print("Epochs: {}/{}, {}".format(i + 1, n_epochs, ", ".join(
@@ -202,19 +236,20 @@ def run(cfg: USSSConfig) -> Dict:
             ev = av.evaluator(len(cfg.gt_map))
             print(accuracy_line(i, n_epochs, ev))
             _log_accuracy(writer, ev, first_step + i)
+        ckpt.maybe_save(phase, i, **nets[phase])
         seconds[phase].append(time.perf_counter() - t0)
         metrics[phase].append(av.as_dict())
 
     # -- phase 1: generator init (Demo_USSS.py:124-189) ---------------------
     print("Start Initial Generator Training")
-    for i in range(cfg.init_num_epochs_g):
+    for i in range(starts["g"], cfg.init_num_epochs_g):
         lr = schedules.G_PRETRAIN(i / cfg.lr_epoch_scale) * cfg.lr_scale
         epoch("g", i, cfg.init_num_epochs_g,
               lambda db: steps.g_pretrain(db["x"], db["y"], db["weight"], lr), 0)
 
     # -- phase 2: segmentor init (Demo_USSS.py:192-286) ---------------------
     print("Start Initial Segmentor Training")
-    for i in range(cfg.init_num_epochs_s):
+    for i in range(starts["s"], cfg.init_num_epochs_s):
         lr = schedules.S_INIT_USSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         epoch("s", i, cfg.init_num_epochs_s,
               lambda db: steps.s_init(db["x"], db["y"], db["ref"], db["item"],
@@ -222,7 +257,7 @@ def run(cfg: USSSConfig) -> Dict:
 
     # -- phase 3: joint alternating (Demo_USSS.py:289-400) ------------------
     print("Start Training")
-    for i in range(cfg.num_epochs):
+    for i in range(starts["joint"], cfg.num_epochs):
         lr = schedules.JOINT_USSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         epoch("joint", i, cfg.num_epochs,
               lambda db: steps.joint(db["x"], db["y"], db["ref"], db["item"],
@@ -278,6 +313,8 @@ def run(cfg: USSSConfig) -> Dict:
         "feed": feed,
         "n_slabs": cache.n_slabs if feed == "window" else None,
         "slab_waits": cache.slab_waits if feed == "window" else None,
+        "start_epochs": starts,
+        "density_dtype": cfg.density_dtype,
     }
 
 
@@ -285,7 +322,8 @@ def _fused_inference(cfg, cache, steps, dataset, acc, roc, out_color_path) -> No
     """The whole scene through the cache's fused stitched pass (resident or
     window); color raster and metrics over the full arrays (tile interiors
     tile the scene disjointly)."""
-    density = cache.stitched_density(steps.infer, batch_size=cfg.batch_size)
+    density = cache.stitched_density(steps.infer, batch_size=cfg.batch_size,
+                                     density_dtype=cfg.density_dtype)
     dataset.write_full(density)
     cmask_full = (density > cfg.prob_thresh).astype(np.int16)
     ref_full = np.zeros_like(cmask_full)
@@ -316,11 +354,11 @@ def _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device) -> No
 
     def compute(batch):
         db = device_put_batch({"x": batch["x"], "y": batch["y"]}, device)
-        return Download(infer(db["x"], db["y"]))
+        return Download(quantize(infer(db["x"], db["y"]), cfg.density_dtype))
 
     def process(dl: Download, batch):
         nonlocal out_color, processed
-        cmap = dl.result().float().numpy()
+        cmap = dequantize(dl.result(), cfg.density_dtype)
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns in range(len(batch["weight"])):
             if batch["weight"][ns] == 0:
@@ -354,7 +392,7 @@ def _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device) -> No
 
 
 def main(argv=None) -> Dict:
-    return run(parse_cli(USSSConfig, argv))
+    return run_profiled(parse_cli(USSSConfig, argv))
 
 
 if __name__ == "__main__":

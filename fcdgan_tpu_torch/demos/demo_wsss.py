@@ -12,12 +12,24 @@ the slice's own file name -> ``Para.txt`` and ``SModel.pkl`` /
 reference state_dicts.
 
 The feed is the JAX driver's choice (demo_wsss.py:79-145), named in the
-result's ``feed``: ``resident`` (the raw slice stacks on the device,
-``--slice-cache auto|on`` within ``FCDGAN_SLICE_CACHE_MAX_MB``), else the
-native slice loaders (``native``: ``NativeWHUPairBatchLoader`` and
+result's ``feed`` (the pair loader of the adversarial phase) and
+``unc_feed`` (the unchanged slices of the G pretrain): ``resident`` (the raw
+slice stacks on the device, ``--slice-cache auto|on`` within
+``FCDGAN_SLICE_CACHE_MAX_MB``), else, each loader on its own, the native
+slice loaders (``native``: ``NativeWHUPairBatchLoader`` and
 ``NativeWHUBatchLoader``, whose tails are wrap-padded), else the Python
-``PairBatchLoader`` / ``BatchLoader`` (``host``). The final inference reads
-the changed slices from the resident stacks, or through ``BatchLoader``.
+``PairBatchLoader`` / ``BatchLoader`` (``host``). ``--random-eraser``
+(on the unchanged slices) and ``--random-assign`` run on the Python loaders
+only, as in the JAX package: the resident stacks refuse both, the native
+loaders the eraser, the native pair loader a random pairing. The final
+inference reads the changed slices from the resident stacks, or through
+``BatchLoader``.
+
+The training options are the JAX driver's (see ``demo_usss``):
+``--siamese-stats split`` (here for S and D), ``--remat``, ``--tail pad``,
+``--checkpoint-every`` / ``--resume`` (``{out_dir}/resume.ckpt``),
+``--profile-dir`` and ``--debug-nans``. ``--density-dtype`` is accepted and
+read nowhere, as in the JAX driver: the density images are uint8.
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -42,8 +54,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..config import WSSSConfig, parse_cli, unported_wsss
+from ..config import WSSSConfig, batch_tail, check_training_options, parse_cli, unported_wsss
 from ..data.datasets import WHUDataset, WHUPairDataset
+from ..data.erasers import build_eraser
 from ..data.device_cache import DeviceWHUCache, IndexBatchLoader, IndexPairBatchLoader
 from ..data.normalize import Normalize
 from ..data.pipeline import (BatchLoader, NativeWHUBatchLoader, NativeWHUPairBatchLoader,
@@ -52,17 +65,18 @@ from ..data.raster import read_image, write_image
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap
 from ..eval.evaluator import Evaluator
-from ..io.checkpoint import model_g_reuse, save_net
+from ..io.checkpoint import TrainCheckpointer, model_g_reuse, save_net
 from ..io.records import ScalarWriter, segmentation_summary, write_para_txt
 from ..models.discriminator import Discriminator
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
 from ..train import schedules
-from ..train.loops import EpochAverages, Progress, accuracy_line
+from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
 from ..train.steps import PerceptionConfig, WSSSSteps
 from ..utils.device import resolve_device
+from ..utils.timing import maybe_profile
 from .demo_usss import _DTYPES, _log_accuracy
 
 G_KEYS = ("g_loss", "generator_loss", "perception_loss", "ssim_loss")
@@ -73,10 +87,11 @@ def _check_supported(cfg: WSSSConfig) -> None:
     missing = unported_wsss(cfg)
     if missing:
         raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch yet: {}; see ROADMAP.md (queue A, "
-            "'Training: what the WSSS slice leaves out')".format("; ".join(missing)))
+            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
+            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
+    check_training_options(cfg)
     if cfg.slice_cache not in ("auto", "on", "off"):
         raise ValueError(f"--slice-cache must be auto, on or off, not {cfg.slice_cache!r}")
 
@@ -84,38 +99,50 @@ def _check_supported(cfg: WSSSConfig) -> None:
 FIELDS = ("x", "y", "ref", "item", "label")
 
 
-def slice_feed(cfg: WSSSConfig, pair_ds, scaler, device):
-    """(feed name, cache or None, pair loader, unchanged-slice loader) of the
-    JAX driver's choice (demo_wsss.py:79-145): the resident stacks, else the
-    native slice loaders, else the Python loaders. ``--slice-cache on``
-    raises when the stacks cannot be resident."""
+def slice_feed(cfg: WSSSConfig, pair_ds, scaler, device, eraser=None):
+    """(pair feed, unchanged feed, cache or None, pair loader, unchanged-slice
+    loader) of the JAX driver's choice (demo_wsss.py:79-145): the resident
+    stacks, else for each loader on its own the native slice loader, else
+    the Python one. ``--slice-cache on`` raises when the stacks cannot be
+    resident."""
     dirs = (cfg.img_dir_x, cfg.img_dir_y, cfg.ref_dir, cfg.label_dir)
     reset = lambda e: pair_ds.order_reset()  # noqa: E731  re-pairs each epoch (Demo_WSSS.py:233)
+    tail = batch_tail(cfg)
     if cfg.slice_cache != "off" and DeviceWHUCache.supports(pair_ds):
         cache = DeviceWHUCache(pair_ds, scaler, device)
-        return ("resident", cache,
+        return ("resident", "resident", cache,
                 IndexPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                                     epoch_hook=reset),
+                                     epoch_hook=reset, tail=tail),
                 IndexBatchLoader(pair_ds.nc_len, cfg.unc_batch_size, shuffle=True,
-                                 seed=cfg.seed))
+                                 seed=cfg.seed, tail=tail))
     if cfg.slice_cache == "on":
-        raise RuntimeError("--slice-cache on: needs changed and unchanged slices within "
-                           "FCDGAN_SLICE_CACHE_MAX_MB")
-    unc_ds = WHUDataset(*dirs, scale=scaler, label_selected="0")
-    if all(NativeWHUBatchLoader.supports(ds) for ds in (pair_ds.c_ds, unc_ds)):
-        return ("native", None,
-                NativeWHUPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                                         epoch_hook=reset),
-                NativeWHUBatchLoader(unc_ds, cfg.unc_batch_size, shuffle=True, seed=cfg.seed))
-    return ("host", None,
-            PairBatchLoader(pair_ds, cfg.batch_size, c_fields=FIELDS, nc_fields=FIELDS,
-                            shuffle=True, seed=cfg.seed, epoch_hook=reset, tail="short"),
-            BatchLoader(unc_ds, cfg.unc_batch_size, fields=FIELDS, shuffle=True, seed=cfg.seed,
-                        tail="short"))
+        raise RuntimeError("--slice-cache on: needs the fixed pairing, no --random-eraser, "
+                           "and changed and unchanged slices within FCDGAN_SLICE_CACHE_MAX_MB")
+    unc_ds = WHUDataset(*dirs, scale=scaler, label_selected="0", transforms=eraser)
+    if NativeWHUPairBatchLoader.supports(pair_ds):
+        feed, pair_loader = "native", NativeWHUPairBatchLoader(
+            pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed, epoch_hook=reset)
+    else:
+        feed, pair_loader = "host", PairBatchLoader(
+            pair_ds, cfg.batch_size, c_fields=FIELDS, nc_fields=FIELDS, shuffle=True,
+            seed=cfg.seed, epoch_hook=reset, tail=tail)
+    if NativeWHUBatchLoader.supports(unc_ds):
+        unc_feed, unc_loader = "native", NativeWHUBatchLoader(
+            unc_ds, cfg.unc_batch_size, shuffle=True, seed=cfg.seed)
+    else:
+        unc_feed, unc_loader = "host", BatchLoader(
+            unc_ds, cfg.unc_batch_size, fields=FIELDS, shuffle=True, seed=cfg.seed, tail=tail)
+    return feed, unc_feed, None, pair_loader, unc_loader
 
 
 def _put(batch, keys, device) -> dict:
     return device_put_batch({k: batch[k] for k in keys}, device)
+
+
+def run_profiled(cfg) -> Dict:
+    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set."""
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return run(cfg)
 
 
 def run(cfg: WSSSConfig) -> Dict:
@@ -138,10 +165,15 @@ def run(cfg: WSSSConfig) -> Dict:
     scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
 
     # -- datasets and their feed (Demo_WSSS.py:84-92) -------------------------
-    pair_ds = WHUPairDataset(*dirs, scale=scaler, rng=random.Random(cfg.seed))
+    # the random eraser on the unchanged training slices (Demo_RSSS.py:96,128
+    # wiring, CommonFunc.py:78-141)
+    eraser = build_eraser(cfg.random_eraser, cfg.eraser_regions, cfg.erase_thresh, cfg.seed)
+    pair_ds = WHUPairDataset(*dirs, scale=scaler, transforms=eraser,
+                             random_assign=cfg.random_assign, rng=random.Random(cfg.seed))
     total = len(pair_ds)
     total_unc = pair_ds.nc_len
-    feed, cache, pair_loader, unc_loader = slice_feed(cfg, pair_ds, scaler, device)
+    feed, unc_feed, cache, pair_loader, unc_loader = slice_feed(cfg, pair_ds, scaler, device,
+                                                                eraser)
     c_ds = pair_ds.c_ds
 
     def put_pair(batch):
@@ -157,8 +189,8 @@ def run(cfg: WSSSConfig) -> Dict:
     # -- models / optimizers (Demo_WSSS.py:103-122) --------------------------
     nband = read_image(c_ds.img_path_x[0]).shape[-1]
     net_g = Generator(nband, compute_dtype=dtype)
-    net_s = Segmentor(nband, compute_dtype=dtype)
-    net_d = Discriminator(nband, compute_dtype=dtype)
+    net_s = Segmentor(nband, compute_dtype=dtype, siamese_stats=cfg.siamese_stats)
+    net_d = Discriminator(nband, compute_dtype=dtype, siamese_stats=cfg.siamese_stats)
     # generator reuse (Demo_WSSS.py:131-138)
     init_epochs_g = model_g_reuse(cfg.out_g_model_dir, net_g, cfg.init_num_epochs_g,
                                   cfg.model_g_reuse)
@@ -167,15 +199,27 @@ def run(cfg: WSSSConfig) -> Dict:
     for net in (net_g, net_s, net_d):
         net.to(device)
     vgg = VGG16Weights(load_vgg16_params(cfg.vgg_npz, require=cfg.require_vgg), device)
+    opts = adam(net_g.parameters()), rmsprop(net_s.parameters()), rmsprop(net_d.parameters())
     steps = WSSSSteps(
-        net_g, net_s, net_d, adam(net_g.parameters()), rmsprop(net_s.parameters()),
-        rmsprop(net_d.parameters()), vgg,
+        net_g, net_s, net_d, *opts, vgg,
         PerceptionConfig(select_feature_layers(cfg.perception_layer),
                          cfg.perception_per_band,
                          dtype=dtype if dtype == torch.bfloat16 else None),
         cfg.perception_weight, cfg.ssim_weight, cfg.g_weight, cfg.l1_weight,
         cfg.d_weight, cfg.nc_weight, cfg.prob_thresh, cfg.discriminator_continuous,
-        cfg.msssim_weights, ssim_metric=cfg.ssim_metric)
+        cfg.msssim_weights, ssim_metric=cfg.ssim_metric, remat=cfg.remat)
+    g_nets = {"netG": (net_g, opts[0])}
+    adv_nets = {**g_nets, "netS": (net_s, opts[1]), "netD": (net_d, opts[2])}
+    ckpt = TrainCheckpointer(os.path.join(out_dir, "resume.ckpt"), cfg.checkpoint_every)
+    starts = {"g": 0, "adv": 0}
+    if cfg.resume and ckpt.exists():
+        meta = ckpt.restore(adv_nets)
+        starts = TrainCheckpointer.start_epochs(meta, ("g", "adv"))
+        print("Resuming from phase {} epoch {}".format(meta["phase"], meta["epoch"]))
+
+    def checked(step, phase, i, *nets):
+        return nan_checked(step, phase, i, *nets) if cfg.debug_nans else step()
+
     writer = ScalarWriter(comment="Building_WSSS{}".format(cfg.ext),
                           enabled=cfg.log_tensorboard)
     seconds = {"g": [], "adv": [], "infer": 0.0}
@@ -183,7 +227,7 @@ def run(cfg: WSSSConfig) -> Dict:
 
     # -- phase 1: G pretrain on unchanged pairs (Demo_WSSS.py:140-204) -------
     print("Start Generator Training")
-    for i in range(init_epochs_g):
+    for i in range(starts["g"], init_epochs_g):
         t0 = time.perf_counter()
         lr = schedules.G_PRETRAIN(i / cfg.lr_epoch_scale) * cfg.lr_scale
         av = EpochAverages(total_unc)
@@ -192,7 +236,8 @@ def run(cfg: WSSSConfig) -> Dict:
             prog.start_batch()
             db = put_unc(batch)
             bw = float(batch["weight"].sum())
-            av.update(steps.g_pretrain(db["x"], db["y"], db["weight"], lr), bw)
+            av.update(checked(lambda: steps.g_pretrain(db["x"], db["y"], db["weight"], lr),
+                              "g", i, net_g), bw)
             prog.end_batch(int(bw))
         prog.finish()
         print("Epochs: {}/{}, g_loss: {:.4f}, generator_loss: {:.4f}, "
@@ -201,12 +246,13 @@ def run(cfg: WSSSConfig) -> Dict:
                   av["perception_loss"], av["ssim_loss"]))
         for k in G_KEYS:
             writer.add_scalar(k, av[k], i)
+        ckpt.maybe_save("g", i, **g_nets)
         seconds["g"].append(time.perf_counter() - t0)
         metrics["g"].append(av.as_dict())
 
     # -- phase 2: adversarial S vs D (Demo_WSSS.py:208-385) ------------------
     print("Start Adversarial Training")
-    for i in range(cfg.num_epochs):
+    for i in range(starts["adv"], cfg.num_epochs):
         t0 = time.perf_counter()
         lr_s = schedules.S_ADV_WSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
         lr_d = schedules.D_ADV_WSSS(i / cfg.lr_epoch_scale) * cfg.lr_scale
@@ -216,8 +262,9 @@ def run(cfg: WSSSConfig) -> Dict:
             prog.start_batch()
             db = put_pair(batch)
             bw = float(batch["weight"].sum())
-            av.update(steps.adversarial(db["c_x"], db["c_y"], db["c_ref"], db["nc_x"],
-                                        db["nc_y"], db["weight"], lr_s, lr_d), bw)
+            av.update(checked(lambda: steps.adversarial(
+                db["c_x"], db["c_y"], db["c_ref"], db["nc_x"], db["nc_y"], db["weight"],
+                lr_s, lr_d), "adv", i, net_s, net_d), bw)
             prog.end_batch(int(bw))
         prog.finish()
         ev = av.evaluator(2)
@@ -230,6 +277,7 @@ def run(cfg: WSSSConfig) -> Dict:
         for k in ADV_KEYS + ("generator_loss", "perception_loss", "ssim_loss"):
             writer.add_scalar(k, av[k], step)
         _log_accuracy(writer, ev, step)
+        ckpt.maybe_save("adv", i, **adv_nets)
         seconds["adv"].append(time.perf_counter() - t0)
         metrics["adv"].append(av.as_dict())
 
@@ -240,13 +288,19 @@ def run(cfg: WSSSConfig) -> Dict:
     acc = Evaluator(num_class=2)
     # the changed slices from the resident stacks, else through BatchLoader
     # (demo_wsss.py:297-305)
-    test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size) if cache is not None
-                   else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail="short"))
+    # (with --tail pad the duplicates of a padded tail enter S's batch
+    # statistics, as in the JAX driver, and are not written)
+    tail = batch_tail(cfg)
+    test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size, tail=tail)
+                   if cache is not None
+                   else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail=tail))
     for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
         db = cache.complete_c(batch) if cache is not None else _put(batch, ("x", "y"), device)
         cmap = steps.infer_train_mode(db["x"], db["y"])[..., 0].cpu().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
+            if batch["weight"][ns] == 0:
+                continue
             item = int(item)
             if cache is not None:
                 ref_mask = cache.cref_host[item, :, :, 0].astype(np.int16)
@@ -304,11 +358,13 @@ def run(cfg: WSSSConfig) -> Dict:
         "changed": pair_ds.c_len,
         "unchanged": pair_ds.nc_len,
         "feed": feed,
+        "unc_feed": unc_feed,
+        "start_epochs": starts,
     }
 
 
 def main(argv=None) -> Dict:
-    return run(parse_cli(WSSSConfig, argv))
+    return run_profiled(parse_cli(WSSSConfig, argv))
 
 
 if __name__ == "__main__":

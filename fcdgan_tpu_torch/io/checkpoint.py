@@ -1,15 +1,19 @@
-"""Checkpoints as reference-format ``.pkl`` state_dicts.
+"""Checkpoints as reference-format ``.pkl`` state_dicts, and resumable runs.
 
 The reference saves ``torch.save(net.state_dict(), 'SModel.pkl')``
 (Demo_USSS.py:477-481, Demo_WSSS.py:454-461) and both packages read that
 format. ``model_g_reuse`` is the WSSS generator-reuse shortcut. An orbax
 ``SModel.ckpt`` directory written by the JAX package is converted first with
-``python -m fcdgan_tpu.tools.convert_checkpoint``.
+``python -m fcdgan_tpu.tools.convert_checkpoint``; ``TrainCheckpointer``
+follows the JAX one's protocol with ``torch.save`` files (it reads and
+writes no orbax).
 """
 
 from __future__ import annotations
 
+import json
 import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +24,94 @@ def save_net(path: str, module: torch.nn.Module) -> None:
     """Write ``module``'s state_dict (on the CPU, f32 params) to ``path``."""
     sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
     torch.save(sd, path)
+
+
+def _save_atomic(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class TrainCheckpointer:
+    """Periodic in-training checkpoints, every phase resumable at epoch
+    granularity (JAX ``io/checkpoint.py`` ``TrainCheckpointer``, :88-163).
+
+    ``maybe_save(phase, epoch, name=(module, optimizer), ...)`` writes, after
+    every ``every``-th epoch of a phase, one ``{name}.pt`` per net holding its
+    ``state_dict`` (parameters and BatchNorm buffers) and its optimizer's,
+    then ``meta.json`` with ``{"phase", "epoch"}`` (each file written to a
+    temporary name and moved into place). ``restore`` loads them into the
+    caller's modules and optimizers and returns the meta record, from which
+    ``start_epochs`` gives each phase's first epoch. As in the JAX package,
+    the data order is not saved: a resumed run re-derives its shuffles from
+    the seed (the documented approximation)."""
+
+    def __init__(self, directory: str, every: int = 0):
+        self.dir = directory
+        self.every = int(every)
+
+    @property
+    def enabled(self) -> bool:
+        return self.every > 0
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.dir, "meta.json")
+
+    def _net_path(self, name: str) -> str:
+        return os.path.join(self.dir, f"{name}.pt")
+
+    def exists(self) -> bool:
+        return os.path.exists(self._meta_path())
+
+    def due(self, epoch: int) -> bool:
+        """True when ``maybe_save`` after ``epoch`` will write."""
+        return self.enabled and (epoch + 1) % self.every == 0
+
+    def maybe_save(self, phase: str, epoch: int,
+                   **nets: Tuple[torch.nn.Module, torch.optim.Optimizer]) -> bool:
+        """Save after ``epoch`` when it hits the cadence; True if it saved."""
+        if not self.due(epoch):
+            return False
+        os.makedirs(self.dir, exist_ok=True)
+        for name, (module, opt) in nets.items():
+            _save_atomic({"state_dict": module.state_dict(), "optimizer": opt.state_dict()},
+                         self._net_path(name))
+        tmp = self._meta_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"phase": phase, "epoch": epoch}, f)
+        os.replace(tmp, self._meta_path())
+        return True
+
+    def restore(self, nets: Dict[str, Tuple[torch.nn.Module, torch.optim.Optimizer]]
+                ) -> Dict:
+        """Load each saved net's state into ``nets`` (a net without a file
+        keeps its state, as the JAX templates do) and return the meta record."""
+        with open(self._meta_path()) as f:
+            meta = json.load(f)
+        for name, (module, opt) in nets.items():
+            path = self._net_path(name)
+            if os.path.exists(path):
+                saved = torch.load(path, map_location="cpu", weights_only=True)
+                module.load_state_dict(saved["state_dict"], strict=True)
+                opt.load_state_dict(saved["optimizer"])
+        return meta
+
+    @staticmethod
+    def start_epochs(meta: Optional[dict], phase_order: Sequence[str]) -> Dict[str, int]:
+        """Per-phase start epochs of a meta record: the phases before the
+        recorded one are complete (a start past any epoch count), the
+        recorded phase resumes at ``epoch + 1``, later phases start at 0."""
+        starts = {p: 0 for p in phase_order}
+        if not meta:
+            return starts
+        seen = False
+        for p in phase_order:
+            if p == meta["phase"]:
+                starts[p] = meta["epoch"] + 1
+                seen = True
+            elif not seen:
+                starts[p] = 10**9
+        return starts
 
 
 def model_g_reuse(g_model_dir: str, net_g: torch.nn.Module, init_num_epochs_g: int,
@@ -37,10 +129,10 @@ def model_g_reuse(g_model_dir: str, net_g: torch.nn.Module, init_num_epochs_g: i
 
 
 def load_segmentor(path: str, device="cpu", compute_dtype=torch.float32,
-                   bilinear: bool = True) -> Segmentor:
+                   bilinear: bool = True, siamese_stats: str = "joint") -> Segmentor:
     """Eval-mode Segmentor on ``device`` with the weights of the ``.pkl``
     state_dict at ``path``, loaded strictly. The band count comes from the
-    first conv's weight."""
+    first conv's weight; ``siamese_stats`` matters only in train mode."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint?); convert it to a "
@@ -57,6 +149,6 @@ def load_segmentor(path: str, device="cpu", compute_dtype=torch.float32,
             "ConvTranspose (bilinear=False) Segmentor checkpoints are not "
             "supported; every reference demo uses bilinear=True (Demo_USSS.py:110)")
     net = Segmentor(sd["inc.double_conv.0.weight"].shape[1],
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, siamese_stats=siamese_stats)
     net.load_state_dict(sd, strict=True)
     return net.to(device).eval()

@@ -24,7 +24,13 @@ BatchNorm follows the JAX package's default (layers.py:291-358), not
 batch mean and the biased variance ``E[x^2] - E[x]^2`` (clamped at 0),
 computed in f32 whatever the compute dtype, and the running variance stores
 that biased value. Every train-mode BN is ``ops.fused_bn.bn_train``, whose
-statistics forward and backward are the ``channel_sums`` kernels. The bias
+statistics forward and backward are the ``channel_sums`` kernels. Each
+train-mode call updates the running statistics in place, as flax does when
+one ``BatchNorm`` runs twice under ``mutable=["batch_stats"]`` (the
+per-branch ``siamese_stats='split'`` passes), except inside
+``frozen_running_stats``: the recompute of a checkpointed forward (remat)
+normalizes with the same batch statistics and counts its batch no second
+time. The bias
 of the conv before a BN is folded (``bn_fold_enabled``, layers.py:32-54): in
 train mode it is never added, so it gets no gradient (``grad is None``) and
 only shifts the running-mean update; in eval mode it enters the BN shift.
@@ -32,7 +38,8 @@ only shifts the running-mean update; in eval mode it enters the BN shift.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import contextlib
+from typing import Callable, Iterator, Tuple
 
 import torch
 import torch.nn as nn
@@ -121,12 +128,31 @@ def conv_bias(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return _conv(conv, x, with_bias=True)
 
 
+@contextlib.contextmanager
+def frozen_running_stats(*modules: nn.Module) -> Iterator[None]:
+    """Within the block, the train-mode BatchNorms of ``modules`` leave their
+    running statistics and ``num_batches_tracked`` as they are (they still
+    normalize with the batch statistics). The recompute context of a
+    checkpointed forward, so that each BN counts its batch once."""
+    bns = [m for mod in modules for m in mod.modules() if isinstance(m, nn.BatchNorm2d)]
+    before = [bn.__dict__.get("stats_frozen", False) for bn in bns]
+    for bn in bns:
+        bn.stats_frozen = True
+    try:
+        yield
+    finally:
+        for bn, was in zip(bns, before):
+            bn.stats_frozen = was
+
+
 def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor, fold_bias: torch.Tensor) -> torch.Tensor:
     """BatchNorm of ``y`` (the conv output without the folded ``fold_bias``)
     with the JAX package's semantics (layers.py:337-358)."""
     dt = y.dtype
     if bn.training:
         out, mean, var = bn_train(y, bn.weight, bn.bias, BN_EPS)
+        if bn.__dict__.get("stats_frozen", False):
+            return out
         with torch.no_grad():
             bn.running_mean.mul_(1 - BN_MOMENTUM).add_(mean + fold_bias, alpha=BN_MOMENTUM)
             bn.running_var.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)

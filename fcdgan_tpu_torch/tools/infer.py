@@ -23,8 +23,10 @@ Port of the JAX package's ``tools/infer.py`` on one device. Load
 ``--density-dtype uint8|bfloat16`` quantizes the downloads on the device.
 ``FCDGAN_SERVE_BS`` above 0 widens the fused pass's chunks (``main`` sets
 it to 32 unless it is set, as the JAX tool does; ``run`` leaves it as
-found). ``--siamese-stats split`` (ROADMAP.md A.3) and ``--n-devices`` above
-1 (A.4) are not ported and raise ``NotImplementedError``.
+found). ``--siamese-stats split`` builds the Segmentor with per-branch BN
+statistics: the same densities in eval mode, and the JAX tool's split path
+under ``--bn-mode train`` (:85, 108). ``--n-devices`` above 1 (ROADMAP.md
+A.4) is not ported and raises ``NotImplementedError``.
 
 Run:
   python -m fcdgan_tpu_torch.tools.infer --dir /data --smodel SModel.pkl \\
@@ -118,13 +120,11 @@ def _check_supported(cfg: InferConfig) -> None:
     from ..eval.inference import transfer_type
     from ..utils.download import check_density_dtype
 
-    if cfg.siamese_stats == "split":
-        raise _not_ported("--siamese-stats split (per-branch BN statistics)", "A.3")
     if cfg.n_devices > 1:
         raise _not_ported("multi-device serving (--n-devices)", "A.4")
     if cfg.mode not in ("scene", "whu", "oscd"):
         raise ValueError(f"--mode must be scene, whu or oscd, not {cfg.mode!r}")
-    if cfg.siamese_stats != "joint":
+    if cfg.siamese_stats not in ("joint", "split"):
         raise ValueError(f"--siamese-stats must be joint or split, not {cfg.siamese_stats!r}")
     if cfg.bn_mode not in ("eval", "train"):
         raise ValueError(f"--bn-mode must be eval or train, not {cfg.bn_mode!r}")
@@ -144,7 +144,7 @@ def _segmentor(cfg: InferConfig, device: torch.device, nband: int):
     if not cfg.smodel:
         raise SystemExit("--smodel <SModel.pkl> is required")
     net = load_segmentor(cfg.smodel, device=device, compute_dtype=_DTYPES[cfg.compute_dtype],
-                         bilinear=cfg.bilinear)
+                         bilinear=cfg.bilinear, siamese_stats=cfg.siamese_stats)
     if net.inc.double_conv[0].in_channels != nband:
         raise ValueError(f"{cfg.smodel} takes {net.inc.double_conv[0].in_channels} "
                          f"bands, the data has {nband}")

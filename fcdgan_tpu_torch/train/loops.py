@@ -7,13 +7,14 @@ for a value: a ``float()`` per metric per batch would wait for the device
 every step. PyTorch runs eagerly, so the JAX package's deferred
 epoch-summary window (``DeferredEpochEnd``) has no counterpart here.
 ``Progress`` is the '\\r' ETA line (Demo_USSS.py:175-176) and
-``accuracy_line`` the per-epoch accuracy print.
+``accuracy_line`` the per-epoch accuracy print. ``nan_checked`` is the
+drivers' ``--debug-nans`` (the JAX drivers' ``jax_debug_nans``).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -103,3 +104,28 @@ def accuracy_line(epoch: int, total_epochs: int, ev: Evaluator) -> str:
                 epoch + 1, total_epochs, ev.Pixel_Accuracy(), ev.Pixel_Kappa(),
                 ev.Pixel_Precision_Rate(), ev.Pixel_Recall_Rate(),
                 ev.Pixel_F1_score(), miou, ciou))
+
+
+def nan_checked(step: Callable[[], Dict[str, torch.Tensor]], phase: str, epoch: int,
+                *nets: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``step()`` with its backward under autograd anomaly detection, then
+    its losses and the gradients it left in ``nets`` read on the host: the
+    first non-finite value raises ``FloatingPointError`` naming the phase and
+    the epoch. Only ``--debug-nans`` pays for these host reads."""
+    where = f"phase {phase}, epoch {epoch + 1}"
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            metrics = step()
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        raise FloatingPointError(f"{where}: {e}") from e
+    for k, v in metrics.items():
+        if k != "confusion" and not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(f"{where}: {k} is {float(v)}")
+    for net in nets:
+        for name, p in net.named_parameters():
+            if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+                raise FloatingPointError(
+                    f"{where}: non-finite gradient of {type(net).__name__}.{name}")
+    return metrics

@@ -24,17 +24,28 @@ Gradient flow, as in the JAX package:
     NetLoss = A + l1w*l1. l1 has no G dependence, so ONE forward and ONE
     backward of NetLoss give gradS and dA/dG; G's gradients are then
     doubled. Then both Adam updates run.
+
+``remat=True`` recomputes the forwards that the JAX steps wrap in
+``jax.checkpoint`` (steps.py:139-150, 285-301, 491-504) in the backward:
+the G and S forwards of USSS, the G forward of the WSSS and RSSS G
+pretrains, and every VGG loss stack (``torch.utils.checkpoint``,
+non-reentrant). The recompute runs under ``frozen_running_stats``, so each
+BatchNorm still updates its running statistics once per forward, as the
+pure JAX functions do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..eval.evaluator import confusion_update
+from ..models.layers import frozen_running_stats
 from ..models.vgg import VGG16Weights
 from ..ops import losses as L
 from .optim import set_lr
@@ -62,6 +73,19 @@ def interior_valid_mask(item: torch.Tensor, interior_sizes: torch.Tensor,
             & (cols >= padx) & (cols < padx + cw)).to(torch.float32)
 
 
+def rematerialized(fn: Callable, *modules: torch.nn.Module) -> Callable:
+    """``fn`` whose activations are recomputed in the backward rather than
+    kept (``jax.checkpoint``); the recompute leaves the running statistics of
+    the BatchNorms in ``modules`` as the forward left them."""
+    def contexts():
+        return contextlib.nullcontext(), frozen_running_stats(*modules)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
+                          preserve_rng_state=False)
+    return run
+
+
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
@@ -77,10 +101,15 @@ class USSSSteps:
                  pad: Tuple[int, int], gt_map: Sequence[int] = (1, 2),
                  pre_map: Sequence[int] = (0, 1), prob_thresh: float = 0.5,
                  msssim_weights: Optional[Sequence[float]] = None,
-                 ssim_metric: bool = True):
+                 ssim_metric: bool = True, remat: bool = False):
         if not ssim_metric and ssim_weight != 0:
             raise ValueError("ssim_metric=False requires ssim_weight == 0")
         self.G, self.S = generator, segmentor
+        ck = rematerialized if remat else (lambda fn, *modules: fn)
+        self._g_fwd = ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)
+        self._s_fwd = ck(lambda x, y: _nhwc(self.S(_nchw(x), _nchw(y))), self.S)
+        self._cnet_ck = ck(self._cnet)
+        self._cnet_ck_pre = ck(lambda *a: self._cnet(*a, target_grad=False))
         self.opt_g, self.opt_s = opt_g, opt_s
         self.vgg = vgg
         self.pc = perception
@@ -119,8 +148,8 @@ class USSSSteps:
     def g_pretrain(self, x, y, w, lr) -> Dict[str, torch.Tensor]:
         self.G.train()
         cmap = torch.zeros(x.shape[:3] + (1,), dtype=x.dtype, device=x.device)
-        y_fake = _nhwc(self.G(_nchw(x)))
-        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w, target_grad=False)
+        y_fake = self._g_fwd(x)
+        gen, l1, perc, ssim = self._cnet_ck_pre(y, y_fake, cmap, w)
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
@@ -134,8 +163,8 @@ class USSSSteps:
         self.S.train()
         with torch.no_grad():  # train-mode G forward: its BN running stats move
             y_fake = _nhwc(self.G(_nchw(x)))
-        cmap = _nhwc(self.S(_nchw(x), _nchw(y)))
-        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w)
+        cmap = self._s_fwd(x, y)
+        gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
         loss = gen + self.l1w * l1 + self.pw * perc + self.sw * ssim
         self.opt_s.zero_grad(set_to_none=True)
         loss.backward()
@@ -149,9 +178,9 @@ class USSSSteps:
     def joint(self, x, y, ref, item, w, lr_g, lr_s) -> Dict[str, torch.Tensor]:
         self.G.train()
         self.S.train()
-        y_fake = _nhwc(self.G(_nchw(x)))
-        cmap = _nhwc(self.S(_nchw(x), _nchw(y)))
-        gen, l1, perc, ssim = self._cnet(y, y_fake, cmap, w)
+        y_fake = self._g_fwd(x)
+        cmap = self._s_fwd(x, y)
+        gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
         a = gen + self.pw * perc + self.sw * ssim  # == LossG
         net_loss = a + self.l1w * l1
         self.opt_g.zero_grad(set_to_none=True)
@@ -205,10 +234,15 @@ class WSSSSteps:
                  ssim_weight: float, g_weight: float, l1_weight: float, d_weight: float,
                  nc_weight: float, prob_thresh: float = 0.6,
                  discriminator_continuous: bool = True,
-                 msssim_weights: Optional[Sequence[float]] = None, ssim_metric: bool = True):
+                 msssim_weights: Optional[Sequence[float]] = None, ssim_metric: bool = True,
+                 remat: bool = False):
         if not ssim_metric and ssim_weight != 0:
             raise ValueError("ssim_metric=False requires ssim_weight == 0")
         self.G, self.S, self.D = generator, segmentor, discriminator
+        ck = rematerialized if remat else (lambda fn, *modules: fn)
+        self._g_fwd = ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)
+        self._cgen_ck = ck(self._cgen)
+        self._cgen_ck_pre = ck(lambda *a: self._cgen(*a, target_grad=False))
         self.opt_g, self.opt_s, self.opt_d = opt_g, opt_s, opt_d
         self.vgg = vgg
         self.pc = perception
@@ -233,8 +267,8 @@ class WSSSSteps:
     def g_pretrain(self, x, y, w, lr) -> Dict[str, torch.Tensor]:
         self.G.train()
         cmap = torch.zeros(x.shape[:3] + (1,), dtype=x.dtype, device=x.device)
-        y_fake = _nhwc(self.G(_nchw(x)))
-        gen, ssim, perc = self._cgen(y, y_fake, cmap, w, target_grad=False)
+        y_fake = self._g_fwd(x)
+        gen, ssim, perc = self._cgen_ck_pre(y, y_fake, cmap, w)
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
@@ -274,7 +308,7 @@ class WSSSSteps:
         s_d_loss = _wmean(self._d(c_x * keep, c_y * keep), w)
         nc_loss = _wmean(ncmap.square().mean(dim=(1, 2, 3)), w)
         if y_fake is not None:
-            gen, ssim, perc = self._cgen(c_y, y_fake, cmap, w)
+            gen, ssim, perc = self._cgen_ck(c_y, y_fake, cmap, w)
         else:
             gen = ssim = perc = torch.zeros((), dtype=c_x.dtype, device=c_x.device)
         g_loss = gen + self.pw * perc + self.sw * ssim
@@ -343,10 +377,15 @@ class RSSSSteps:
                  gt_map: Sequence[int] = (1, 2), pre_map: Sequence[int] = (0, 1),
                  prob_thresh: float = 0.5, discriminator_continuous: bool = True,
                  msssim_weights: Optional[Sequence[float]] = None,
-                 test_interior_sizes: Optional[np.ndarray] = None, ssim_metric: bool = True):
+                 test_interior_sizes: Optional[np.ndarray] = None, ssim_metric: bool = True,
+                 remat: bool = False):
         if not ssim_metric and ssim_weight != 0:
             raise ValueError("ssim_metric=False requires ssim_weight == 0")
         self.G, self.S, self.D = generator, segmentor, discriminator
+        ck = rematerialized if remat else (lambda fn, *modules: fn)
+        self._g_fwd = ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)
+        self._cgen_ck = ck(self._cgen)
+        self._cgen_ck_pre = ck(lambda *a: self._cgen(*a, target_grad=False))
         self.opt_g, self.opt_s, self.opt_d = opt_g, opt_s, opt_d
         self.vgg = vgg
         self.pc = perception
@@ -391,8 +430,8 @@ class RSSSSteps:
     # -- G pretrain with the region raster as mask (Demo_RSSS.py:173-238) ---
     def g_pretrain(self, x, y, region, w, lr) -> Dict[str, torch.Tensor]:
         self.G.train()
-        y_fake = _nhwc(self.G(_nchw(x)))
-        gen, ssim, perc = self._cgen(y, y_fake, region, w, target_grad=False)
+        y_fake = self._g_fwd(x)
+        gen, ssim, perc = self._cgen_ck_pre(y, y_fake, region, w)
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
@@ -427,7 +466,7 @@ class RSSSSteps:
         # S loss against the updated D
         keep = 1 - (cmap if self.continuous else L.hard_mask(cmap))
         s_d_loss = _wmean(self._d(x * keep, y * keep), w)
-        gen, ssim, perc = self._cgen(y, y_fake, cmap, w)
+        gen, ssim, perc = self._cgen_ck(y, y_fake, cmap, w)
         g_loss = gen + self.pw * perc + self.sw * ssim
         l1_loss = L.region_loss(cmap, region, "l1", sample_weight=w)
         r_loss = L.region_loss(cmap, 1 - region, "mse", sample_weight=w)

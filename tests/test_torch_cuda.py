@@ -780,3 +780,110 @@ def test_window_density_on_the_card_is_the_resident_one(tmp_path, monkeypatch, e
     win = DeviceSceneWindowCache(ds, scaler, "cuda")
     assert win.n_slabs >= 2
     assert np.array_equal(win.stitched_density(net, 4), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(10, 220, 220, 64), (10, 110, 110, 128), (10, 27, 27, 512),
+                                   (15, 200, 200, 64), (15, 25, 25, 512)])
+def test_channel_sums_split_half_batch(shape):
+    """Both sum kernels in bf16 at the BN inputs of S's encoder under
+    ``--siamese-stats split``: one branch of a USSS (10) or WSSS (15) batch,
+    half the joint pass's N; within 1e-5 of the sum of magnitudes, one
+    launch each."""
+    gen = _card_generator(11)
+    from fcdgan_tpu_torch.ops.channel_sums import (channel_sums, channel_sums_pair,
+                                                   channel_sums_pair_plain,
+                                                   channel_sums_plain)
+
+    a = (torch.randn(shape, generator=gen, device="cuda") * 2 + 1).to(torch.bfloat16)
+    b = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    before = (channel_sums.launches, channel_sums_pair.launches)
+    got = (*channel_sums(a, square=True), *channel_sums_pair(a, b))
+    torch.cuda.synchronize()
+    assert (channel_sums.launches, channel_sums_pair.launches) == (before[0] + 1, before[1] + 1)
+    af, bf = a.float().reshape(-1, shape[-1]), b.float().reshape(-1, shape[-1])
+    want = (*channel_sums_plain(a, square=True), *channel_sums_pair_plain(a, b))
+    scale = (af.abs().sum(0), af.square().sum(0), af.abs().sum(0), (af * bf).abs().sum(0))
+    for g, w, s in zip(got, want, scale):
+        assert bool(((g - w).abs() <= 1e-5 * s + 1e-30).all())
+
+
+def _launch_counts():
+    from fcdgan_tpu_torch.ops.channel_sums import channel_sums, channel_sums_pair
+    from fcdgan_tpu_torch.ops.conv3x3 import conv3x3
+    from fcdgan_tpu_torch.ops.phase_pool import phase_pool
+    from fcdgan_tpu_torch.ops.pool_bwd import pool_bwd
+
+    return {"conv3x3": conv3x3.launches, "channel_sums": channel_sums.launches,
+            "channel_sums_pair": channel_sums_pair.launches,
+            "phase_pool": phase_pool.launches, "pool_bwd": pool_bwd.launches}
+
+
+@pytest.mark.cuda
+def test_split_segmentor_launches_twice_in_the_encoder():
+    """A train-mode forward and backward of the bf16 Segmentor at 220 px: in
+    split mode every encoder kernel (the three gated convs, the ten encoder
+    BNs' sums, the four pools forward and backward) launches twice, the
+    decoder's eight BNs once, against once each in joint mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+
+    gen = _card_generator(12)
+    x, y = (torch.randn((4, 3, 220, 220), generator=gen, device="cuda") for _ in range(2))
+    counts = {}
+    for mode in ("joint", "split"):
+        torch.manual_seed(0)
+        net = Segmentor(3, compute_dtype=torch.bfloat16, siamese_stats=mode).cuda().train()
+        before = _launch_counts()
+        net(x, y).sum().backward()
+        torch.cuda.synchronize()
+        counts[mode] = {k: v - before[k] for k, v in _launch_counts().items()}
+    enc = {"conv3x3": 3, "channel_sums": 10, "channel_sums_pair": 10, "phase_pool": 4,
+           "pool_bwd": 4}
+    dec = {"conv3x3": 0, "channel_sums": 8, "channel_sums_pair": 8, "phase_pool": 0,
+           "pool_bwd": 0}
+    assert counts["joint"] == {k: enc[k] + dec[k] for k in enc}
+    assert counts["split"] == {k: 2 * enc[k] + dec[k] for k in enc}
+
+
+@pytest.mark.cuda
+def test_remat_step_leaves_the_step_buffers():
+    """A bf16 USSS joint step on the card with and without ``remat`` from the
+    same weights: every BN buffer of G and S (running statistics within the
+    bf16 step's own rounding, 1e-2 relative, and ``num_batches_tracked``
+    exactly: one count, not two) and the losses (1e-2 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.train.optim import adam
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+    gen = _card_generator(13)
+    x = torch.rand((4, 220, 220, 3), generator=gen, device="cuda")
+    y = (x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")).clamp(0, 1)
+    ref = torch.ones((4, 220, 220, 1), device="cuda")
+    item, w = torch.arange(4, device="cuda"), torch.ones(4, device="cuda")
+    vggp = vgg16_random_params(0)
+    out = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        g = Generator(3, compute_dtype=torch.bfloat16).cuda()
+        s = Segmentor(3, compute_dtype=torch.bfloat16).cuda()
+        st = USSSSteps(g, s, adam(g.parameters()), adam(s.parameters()),
+                       VGG16Weights(vggp, "cuda"), PerceptionConfig((29,), True, torch.bfloat16),
+                       0.4, 0.65, 0.0, np.array([[200, 200]] * 4), (10, 10), remat=remat)
+        m = st.joint(x, y, ref, item, w, 1e-4, 1e-4)
+        bufs = {f"{n}.{k}": v.clone() for n, net in (("g", g), ("s", s))
+                for k, v in net.named_buffers()}
+        out[remat] = ({k: float(v) for k, v in m.items() if k != "confusion"}, bufs)
+    (m0, b0), (m1, b1) = out[False], out[True]
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-2 * max(abs(m0[k]), 1e-6), k
+    for k, v in b0.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(b1[k]) == int(v) == 1, k
+        else:
+            assert bool(((b1[k] - v).abs() <= 1e-2 * v.abs() + 1e-4).all()), k

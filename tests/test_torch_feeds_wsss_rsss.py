@@ -67,8 +67,9 @@ def test_wsss_feed_choice(whu, monkeypatch, cache, budget, library, feed):
     scaler = Normalize([100.0] * 3, [30.0] * 3, [101.0] * 3, [31.0] * 3)
     pair = WHUPairDataset(cfg.img_dir_x, cfg.img_dir_y, cfg.ref_dir, cfg.label_dir,
                           scale=scaler, rng=random.Random(0))
-    got, cache_obj, pair_loader, unc_loader = demo_wsss.slice_feed(cfg, pair, scaler, "cpu")
-    assert got == feed and (cache_obj is not None) == (feed == "resident")
+    got, unc_got, cache_obj, pair_loader, unc_loader = demo_wsss.slice_feed(cfg, pair, scaler,
+                                                                            "cpu")
+    assert got == unc_got == feed and (cache_obj is not None) == (feed == "resident")
     if feed == "host":
         assert type(pair_loader) is PairBatchLoader and type(unc_loader) is BatchLoader
     batch = next(iter(pair_loader))
@@ -123,9 +124,9 @@ def test_rsss_feed_choice(oscd, monkeypatch, cache, library, feed):
         monkeypatch.setattr(native, "can_open", lambda path: False)
     ds = OSCDDataset(root, "train.txt", patch_size=(32, 32), overlap_padding=(4, 4))
     test = OSCDDataset(root, "test.txt", patch_size=(32, 32), overlap_padding=(4, 4))
-    got, train_cache, test_cache = demo_rsss.tile_feed(RSSSConfig(tile_cache=cache), ds,
-                                                       test, "cpu")
-    assert got == feed and (train_cache is not None) == (feed == "resident")
+    got, test_got, train_cache, test_cache = demo_rsss.tile_feed(RSSSConfig(tile_cache=cache),
+                                                                 ds, test, "cpu")
+    assert got == test_got == feed and (train_cache is not None) == (feed == "resident")
     items = [b["item"].tolist() for b in
              demo_rsss._loader(got, ds, train_cache, 5, True, 3)]
     plain = [b["item"].tolist() for b in demo_rsss._loader("host", ds, None, 5, True, 3)]

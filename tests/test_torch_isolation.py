@@ -7,6 +7,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "fcdgan_tpu_torch")
 
@@ -94,18 +96,54 @@ def test_run_without_cpu_request_raises_without_gpu(monkeypatch, tmp_path):
     assert resolve_device("cpu").type == "cpu"
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("kw,item", [
     (dict(siamese_stats="split"), "A.3"), (dict(n_devices=4), "A.4"),
     (dict(mode="whu", siamese_stats="split"), "A.3"), (dict(mode="oscd", n_devices=2), "A.4"),
     (dict(bn_mode="train", siamese_stats="split"), "A.3"),
     (dict(device_feed="stream", density_dtype="uint8", n_devices=2), "A.4")])
 def test_unported_options_raise(kw, item, tmp_path):
-    """The serving options outside the port, in every mode: each names its
-    ROADMAP item."""
+    """The serving options of ROADMAP.md queue A, in every mode: multi-device
+    serving (A.4) still raises, naming its item; ``--siamese-stats split``
+    (A.3) runs on the CPU, in eval mode with the densities of the joint
+    Segmentor within f32 rounding (1e-5)."""
+    import numpy as np
+    import torch
+
+    from fcdgan_tpu_torch.data.raster import open_raster, read_image
+    from fcdgan_tpu_torch.data.synthetic import make_usss_scene, make_whu_dataset
+    from fcdgan_tpu_torch.io.checkpoint import save_net
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.tools.infer import InferConfig, run
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A, item {item}"):
-        run(InferConfig(dir=str(tmp_path), smodel="SModel.pkl", device="cpu", **kw))
+    if item == "A.4":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A, item {item}"):
+            run(InferConfig(dir=str(tmp_path), smodel="SModel.pkl", device="cpu", **kw))
+        return
+    torch.manual_seed(0)
+    save_net(str(tmp_path / "SModel.pkl"), Segmentor(3))
+    common = dict(smodel=str(tmp_path / "SModel.pkl"), device="cpu", compute_dtype="float32",
+                  patch_size=(32, 32), overlap_padding=(4, 4), batch_size=2, progress=False)
+    if kw.get("mode") == "whu":
+        make_whu_dataset(str(tmp_path), n_changed=3, n_unchanged=1, size=32, seed=1)
+        common.update(img_dir_x=str(tmp_path / "before"), img_dir_y=str(tmp_path / "after"),
+                      ref_dir=str(tmp_path / "Label"), label_dir=str(tmp_path))
+    else:
+        make_usss_scene(str(tmp_path), 40, 40, 3, seed=1)
+        common.update(dir=str(tmp_path), ref_name="ref.tif")
+    dens = {}
+    for mode in ("joint", "split"):
+        out = run(InferConfig(**{**common, **kw, "siamese_stats": mode},
+                              outdir=str(tmp_path / mode), ext=f"_{mode}"))
+        if kw.get("mode") == "whu":
+            dens[mode] = np.stack([read_image(os.path.join(out["density_dir"], n))
+                                   for n in sorted(os.listdir(out["density_dir"]))])
+        else:
+            dens[mode] = open_raster(out["density_path"]).read_block()
+        assert np.isfinite(out["oa"])
+    assert dens["split"].shape == dens["joint"].shape and dens["split"].size
+    tol = 1.0 if kw.get("mode") == "whu" else 1e-5  # whu: uint8 images, one grey level
+    np.testing.assert_allclose(dens["split"].astype(np.float64), dens["joint"], atol=tol)
 
 
 def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):

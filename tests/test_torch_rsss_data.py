@@ -1,8 +1,9 @@
 """The data, losses and schedules of the RSSS training slice against the JAX
 package's: the synthetic OSCD layout, the OSCD datasets and per-scene
 normalizers, the device-resident tile stacks, ``region_loss`` and the
-adversarial schedules; and the options the port's RSSS driver does not run
-yet. The steps and the driver are in ``test_torch_rsss.py``."""
+adversarial schedules; and every option of the port's RSSS driver, through
+the driver on the CPU. The steps and the driver's end-to-end runs are in
+``test_torch_rsss.py``."""
 
 import filecmp
 import os
@@ -26,6 +27,8 @@ from fcdgan_tpu_torch.data.tiff import TiffWriter
 from fcdgan_tpu_torch.demos.demo_rsss import _scene_scalers
 from fcdgan_tpu_torch.ops import losses as plosses
 from fcdgan_tpu_torch.train import schedules as psched
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 PATCH, PAD = (32, 32), (4, 4)
 SIDE = 48
@@ -120,8 +123,19 @@ def test_oscd_list_checks(oscd, tmp_path):
         pds.OSCDDataset(root, "train.txt", scaler=[None])
     with pytest.raises(ValueError, match="transforms"):
         pds.OSCDDataset(root, "train.txt", transforms=[None])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pds.OSCDDataset(root, "train.txt", transforms=[None, lambda x: x])
+    calls = []
+
+    def sync(img, region=None):  # a scene's sync transform: x first, then y with its region
+        calls.append(region)
+        return img + 1.0, "r"
+
+    plain = pds.OSCDDataset(root, "train.txt", patch_size=PATCH, overlap_padding=PAD)
+    moved = pds.OSCDDataset(root, "train.txt", transforms=[None, sync], patch_size=PATCH,
+                            overlap_padding=PAD)
+    for i in (0, len(plain) - 1):  # a tile of each scene
+        for a, b, k in zip(moved[i][:2], plain[i][:2], "xy"):
+            np.testing.assert_array_equal(a, b + (1.0 if i else 0.0), err_msg=k)
+    assert calls == [None, "r"]
     ds = pds.OSCDDataset(root, "train.txt", transforms=[None, None], patch_size=PATCH,
                          overlap_padding=PAD)
     with pytest.raises(IndexError):
@@ -213,26 +227,119 @@ def test_rsss_schedules_match_jax(name):
     assert port(0.5) == pytest.approx(ref(0.5), rel=1e-12)
 
 
+def _run_option(tmp_path, monkeypatch, *flags):
+    """The driver with ``flags`` on the layout of the ``oscd`` fixture (48 px,
+    3 uint16 scenes: 8 train tiles in batches of 3, a tail of 2; 4 test
+    tiles), no G pretrain, one adversarial epoch with its train-mode test
+    evaluation; checks the artifacts and returns the result, the batch sizes
+    of the adversarial steps and of the test evaluation, and the erasers the
+    driver built."""
+    import shutil
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.demos import demo_rsss
+    from fcdgan_tpu_torch.train.steps import RSSSSteps
+
+    make_oscd_dataset(str(tmp_path), xsize=SIDE, ysize=SIDE, rects=RECTS, seed=2,
+                      dtype=np.uint16)
+    sizes = {"adversarial": [], "eval_confusion_train": []}
+    erasers, build = [], demo_rsss.build_eraser
+    for name, calls in sizes.items():
+        def recorded(self, x, *args, _fn=getattr(RSSSSteps, name), _calls=calls):
+            _calls.append(int(x.shape[0]))
+            return _fn(self, x, *args)
+
+        monkeypatch.setattr(RSSSSteps, name, recorded)
+    monkeypatch.setattr(demo_rsss, "build_eraser",
+                        lambda *a: erasers.append(build(*a)) or erasers[-1])
+    out = demo_rsss.main([
+        "--img-dir", str(tmp_path), "--out-g-model-dir", str(tmp_path / "G"), "--device", "cpu",
+        "--msssim-weights", "0.5,0.5", "--patch-size", "32,32", "--overlap-padding", "4,4",
+        "--batch-size", "3", "--init-num-epochs-g", "0", "--num-epochs", "1",
+        "--log-tensorboard", "false", "--progress", "false", "--save-checkpoints", "false",
+        "--ext", "_o", *flags])
+    for name in (out["density_name"], out["color_name"]):
+        r = open_raster(os.path.join(str(tmp_path), "gamma", "ImagePair", name)).read_block()
+        assert r.shape[:2] == (SIDE, SIDE) and np.isfinite(r).all()
+    assert out["evaluator"].confusion_matrix.sum() == SIDE * SIDE
+    assert os.path.isfile(out["para_path"])
+    for m in out["epoch_metrics"]["adv"]:
+        assert all(np.isfinite(v) for k, v in m.items() if k != "f1")
+    shutil.rmtree(str(tmp_path / "G"), ignore_errors=True)
+    return out, sizes, erasers
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
                                   ["--tail", "pad"], ["--random-eraser", "true"], ["--n-devices", "2"],
-                                  ["--checkpoint-every", "5"], ["--resume", "true"],
+                                  ["--checkpoint-every", "1"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"], ["--num-processes", "2"]])
-def test_unported_options_raise(flag, tmp_path):
+def test_unported_options_raise(flag, tmp_path, monkeypatch):
+    """The options the RSSS driver once left out: multi-device and
+    multi-host training (ROADMAP.md A.4) still raise; each other one runs
+    through the driver on the CPU and writes its artifacts
+    (``_run_option``). With ``--tail pad`` the adversarial steps see the
+    padded tail and the train-mode test evaluation trims it; the eraser
+    leaves the resident tiles for ``BatchLoader``."""
+    import json
+    import shutil
+
     from fcdgan_tpu_torch.demos import demo_rsss
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        demo_rsss.main(["--img-dir", str(tmp_path), "--device", "cpu", *flag])
+    if flag[0] in ("--n-devices", "--num-processes"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            demo_rsss.main(["--img-dir", str(tmp_path), "--device", "cpu", *flag])
+        return
+    resume = tmp_path / "model_o" / "resume.ckpt"
+    if flag[0] == "--resume":  # a record of a finished adversarial phase
+        resume.mkdir(parents=True)
+        (resume / "meta.json").write_text(json.dumps({"phase": "adv", "epoch": 0}))
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out, sizes, erasers = _run_option(tmp_path, monkeypatch, *flag)
+    assert out["feed"] == ("host" if flag[0] == "--random-eraser" else "resident")
+    assert (erasers[0] is not None) == (flag[0] == "--random-eraser")
+    want = {"adversarial": [3, 3, 3] if flag[0] == "--tail" else [3, 3, 2],
+            "eval_confusion_train": [3, 1]}
+    assert sizes == ({k: [] for k in want} if flag[0] == "--resume" else want)
+    assert out["dstate"].siamese_stats == out["sstate"].siamese_stats == (
+        "split" if flag[0] == "--siamese-stats" else "joint")
+    if flag[0] == "--checkpoint-every":
+        assert json.loads((resume / "meta.json").read_text()) == {"phase": "adv", "epoch": 0}
+        assert sorted(os.listdir(resume)) == ["meta.json", "netD.pt", "netG.pt", "netS.pt"]
+        shutil.rmtree(resume)  # half a GB of S and its RMSprop state
+    if flag[0] == "--density-dtype":
+        from fcdgan_tpu_torch.data.raster import open_raster
+
+        d = open_raster(os.path.join(str(tmp_path), "gamma", "ImagePair",
+                                     out["density_name"])).read_block()
+        np.testing.assert_array_equal(d * 255, np.round(d * 255))
+    if flag[0] == "--profile-dir":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(flag[1]))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--eraser-regions", "2"], ["--erase-thresh", "0.2"],
                                   ["--learning-rate", "1e-3"], ["--device-normalize", "on"],
                                   ["--platform", "cpu"]])
-def test_unread_options_are_rejected(flag, tmp_path):
+def test_unread_options_are_rejected(flag, tmp_path, monkeypatch):
+    """Flags of no field of the config are rejected; ``--eraser-regions``
+    and ``--erase-thresh`` are fields since the eraser runs, and reach it
+    (with ``--random-eraser``, through the driver)."""
+    from fcdgan_tpu_torch.data.erasers import RandomEraser, RandomEraserMultiRegion
     from fcdgan_tpu_torch.demos import demo_rsss
 
-    with pytest.raises(SystemExit):
-        demo_rsss.main(["--img-dir", str(tmp_path), "--device", "cpu", *flag])
+    if flag[0] not in ("--eraser-regions", "--erase-thresh"):
+        with pytest.raises(SystemExit):
+            demo_rsss.main(["--img-dir", str(tmp_path), "--device", "cpu", *flag])
+        return
+    _, _, erasers = _run_option(tmp_path, monkeypatch, "--random-eraser", "true", *flag)
+    eraser = erasers[0]
+    if flag[0] == "--eraser-regions":
+        assert isinstance(eraser, RandomEraserMultiRegion) and eraser.multi_region == 2
+    else:
+        assert isinstance(eraser, RandomEraser) and eraser.erase_thresh == 0.2
 
 
 def test_driver_defaults_to_the_card(monkeypatch, tmp_path):

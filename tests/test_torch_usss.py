@@ -10,6 +10,7 @@ jitted step keeps to itself. The optimizer is compared on its own, on
 identical gradients."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -32,6 +33,8 @@ from fcdgan_tpu_torch.models.segmentor import Segmentor
 from fcdgan_tpu_torch.models.vgg import VGG16Weights
 from fcdgan_tpu_torch.train.optim import adam, set_lr
 from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 32
 MSW = (0.5, 0.5)
@@ -294,13 +297,53 @@ def test_demo_usss_end_to_end_on_cpu(tmp_path):
     assert all(len(v) == 1 for k, v in out["epoch_seconds"].items() if k != "infer")
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
                                   ["--tail", "pad"], ["--n-devices", "2"],
-                                  ["--checkpoint-every", "5"], ["--resume", "true"],
+                                  ["--checkpoint-every", "1"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"]])
 def test_unported_options_raise(flag, tmp_path):
+    """The options the USSS driver once left out: multi-device training
+    (ROADMAP.md A.4) still raises; each other one runs through the driver on
+    the CPU (a 48 px scene, 4 tiles in batches of 3, one joint epoch) and
+    writes its artifacts."""
+    import json
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.data.synthetic import make_usss_scene
     from fcdgan_tpu_torch.demos import demo_usss
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        demo_usss.main(["--dir", str(tmp_path), "--device", "cpu", *flag])
+    if flag[0] == "--n-devices":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            demo_usss.main(["--dir", str(tmp_path), "--device", "cpu", *flag])
+        return
+    make_usss_scene(str(tmp_path), 48, 48, 3, rects=((10, 12, 14, 12),), seed=2)
+    resume = tmp_path / "resume_o.ckpt"
+    if flag[0] == "--resume":  # a record of a finished joint phase: every epoch is skipped
+        resume.mkdir()
+        (resume / "meta.json").write_text(json.dumps({"phase": "joint", "epoch": 0}))
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out = demo_usss.main([
+        "--dir", str(tmp_path), "--device", "cpu", "--patch-size", "32,32",
+        "--overlap-padding", "4,4", "--msssim-weights", "0.5,0.5", "--batch-size", "3",
+        "--init-num-epochs-g", "0", "--init-num-epochs-s", "0", "--num-epochs", "1",
+        "--log-tensorboard", "false", "--progress", "false", "--save-checkpoints", "false",
+        "--ext", "_o", *flag])
+    density = open_raster(out["density_path"]).read_block()[..., 0]
+    assert density.shape == (48, 48) and np.isfinite(density).all()
+    assert os.path.isfile(out["color_path"]) and os.path.isfile(out["para_path"])
+    assert out["evaluator"].confusion_matrix.sum() == 48 * 48
+    assert len(out["epoch_seconds"]["joint"]) == (0 if flag[0] == "--resume" else 1)
+    assert all(np.isfinite(v) for m in out["epoch_metrics"]["joint"] for v in m.values())
+    if flag[0] == "--siamese-stats":
+        assert out["sstate"].siamese_stats == "split"
+    if flag[0] == "--checkpoint-every":
+        assert json.loads((resume / "meta.json").read_text()) == {"phase": "joint", "epoch": 0}
+        assert sorted(os.listdir(resume)) == ["meta.json", "netG.pt", "netS.pt"]
+        shutil.rmtree(resume)  # half a GB of S and its Adam moments
+    if flag[0] == "--density-dtype":
+        np.testing.assert_array_equal(density * 255, np.round(density * 255))
+    if flag[0] == "--profile-dir":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(flag[1]))

@@ -12,6 +12,7 @@ rebuilds the USSS steps."""
 
 import os
 import random
+import shutil
 
 import numpy as np
 import pytest
@@ -42,6 +43,8 @@ from fcdgan_tpu_torch.models.vgg import VGG16Weights
 from fcdgan_tpu_torch.ops import losses as plosses
 from fcdgan_tpu_torch.train.optim import adam, rmsprop, set_lr
 from fcdgan_tpu_torch.train.steps import PerceptionConfig, WSSSSteps
+
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 32
 MSW = (0.5, 0.5)
@@ -486,23 +489,101 @@ def test_demo_wsss_end_to_end_on_cpu(tmp_path):
     assert os.path.basename(first["gmodel_path"]) == "GModel.pkl"
 
 
+def _run_option(tmp_path, monkeypatch, *flags):
+    """The driver with ``flags`` on 3 changed and 4 unchanged 32 px slices
+    (batch 3: a tail of one pair), no G pretrain, one adversarial epoch;
+    checks the artifacts and returns the result, the adversarial batch sizes
+    and the erasers the driver built."""
+    from fcdgan_tpu_torch.data.raster import read_image
+    from fcdgan_tpu_torch.data.synthetic import make_whu_dataset
+    from fcdgan_tpu_torch.demos import demo_wsss
+
+    root = str(tmp_path)
+    make_whu_dataset(root, n_changed=3, n_unchanged=4, size=32, seed=1)
+    sizes, erasers = [], []
+    adversarial, build = WSSSSteps.adversarial, demo_wsss.build_eraser
+
+    def recorded(self, c_x, *args):
+        sizes.append(int(c_x.shape[0]))
+        return adversarial(self, c_x, *args)
+
+    monkeypatch.setattr(WSSSSteps, "adversarial", recorded)
+    monkeypatch.setattr(demo_wsss, "build_eraser",
+                        lambda *a: erasers.append(build(*a)) or erasers[-1])
+    argv = _demo_argv(root, "_o")
+    argv[argv.index("--batch-size") + 1] = "3"
+    argv[argv.index("--init-num-epochs-g") + 1] = "0"
+    out = demo_wsss.main([*argv, "--save-checkpoints", "false", *flags])
+    names = sorted(n for n, _, _, c in (ln.strip().split(",") for ln in
+                                        open(os.path.join(root, "label.txt"))) if c == "1")
+    for name in names:
+        assert read_image(os.path.join(out["density_dir"], name)).shape == (32, 32, 1)
+        assert read_image(os.path.join(out["out_dir"], name)).shape == (32, 32, 3)
+    assert out["evaluator"].confusion_matrix.sum() == 3 * 32 * 32
+    assert os.path.isfile(out["para_path"])
+    for m in out["epoch_metrics"]["adv"]:
+        assert all(np.isfinite(v) for v in m.values())
+    return out, sizes, erasers
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
                                   ["--tail", "pad"], ["--random-assign", "true"],
                                   ["--random-eraser", "true"], ["--n-devices", "2"],
-                                  ["--checkpoint-every", "5"], ["--resume", "true"],
+                                  ["--checkpoint-every", "1"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"]])
-def test_unported_options_raise(flag, tmp_path):
+def test_unported_options_raise(flag, tmp_path, monkeypatch):
+    """The options the WSSS driver once left out: multi-device training
+    (ROADMAP.md A.4) still raises; each other one runs through the driver on
+    the CPU and writes its artifacts (``_run_option``). The eraser and a
+    random pairing leave the resident slices for the Python loaders."""
+    import json
+
     from fcdgan_tpu_torch.demos import demo_wsss
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        demo_wsss.main(["--label-dir", str(tmp_path), "--device", "cpu", *flag])
+    if flag[0] == "--n-devices":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            demo_wsss.main(["--label-dir", str(tmp_path), "--device", "cpu", *flag])
+        return
+    resume = tmp_path / "Detection_WSS_o" / "resume.ckpt"
+    if flag[0] == "--resume":  # a record of a finished adversarial phase
+        resume.mkdir(parents=True)
+        (resume / "meta.json").write_text(json.dumps({"phase": "adv", "epoch": 0}))
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    out, sizes, erasers = _run_option(tmp_path, monkeypatch, *flag)
+    host = flag[0] in ("--random-assign", "--random-eraser")
+    assert out["feed"] == ("host" if host else "resident")
+    assert sizes == ([] if flag[0] == "--resume" else [3, 3] if flag[0] == "--tail" else [3, 1])
+    assert (erasers[0] is not None) == (flag[0] == "--random-eraser")
+    assert out["dstate"].siamese_stats == out["sstate"].siamese_stats == (
+        "split" if flag[0] == "--siamese-stats" else "joint")
+    if flag[0] == "--checkpoint-every":
+        assert json.loads((resume / "meta.json").read_text()) == {"phase": "adv", "epoch": 0}
+        assert sorted(os.listdir(resume)) == ["meta.json", "netD.pt", "netG.pt", "netS.pt"]
+        shutil.rmtree(resume)  # half a GB of S and its RMSprop state
+    if flag[0] == "--profile-dir":
+        assert any(f.endswith(".pt.trace.json") for f in os.listdir(flag[1]))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--eraser-regions", "2"], ["--erase-thresh", "0.2"],
                                   ["--learning-rate", "1e-3"], ["--device-normalize", "on"]])
-def test_unread_options_are_rejected(flag, tmp_path):
+def test_unread_options_are_rejected(flag, tmp_path, monkeypatch):
+    """Flags of no field of the config are rejected; ``--eraser-regions``
+    and ``--erase-thresh`` are fields since the eraser runs, and reach it
+    (with ``--random-eraser``, through the driver)."""
+    from fcdgan_tpu_torch.data.erasers import RandomEraser, RandomEraserMultiRegion
     from fcdgan_tpu_torch.demos import demo_wsss
 
-    with pytest.raises(SystemExit):
-        demo_wsss.main(["--label-dir", str(tmp_path), "--device", "cpu", *flag])
+    if flag[0] not in ("--eraser-regions", "--erase-thresh"):
+        with pytest.raises(SystemExit):
+            demo_wsss.main(["--label-dir", str(tmp_path), "--device", "cpu", *flag])
+        return
+    _, _, erasers = _run_option(tmp_path, monkeypatch, "--random-eraser", "true", *flag)
+    eraser = erasers[0]
+    if flag[0] == "--eraser-regions":
+        assert isinstance(eraser, RandomEraserMultiRegion) and eraser.multi_region == 2
+    else:
+        assert isinstance(eraser, RandomEraser) and eraser.erase_thresh == 0.2
