@@ -158,6 +158,29 @@ wgmma:
   eraser   one adversarial epoch each of WSSS and RSSS with --random-eraser
            on the Python loaders (feed host), beside the resident rate
 
+Data parallel (``parallel.mesh``), each run's launches held against the
+count derived for it:
+  serve_dp  tools.infer --n-devices 1 on the 2048² scene: a world of one
+           (NCCL), the streaming path with each batch split over the ranks
+           and gathered, within 1e-3 of the fused batch-exact density; 3
+           conv3x3 and 4 phase_pool launches a batch; px_per_s
+  dp_world1  the train phase's run with --n-devices 1 (NCCL, the padded
+           tail, every all-reduce) and with --tail pad without a process
+           group, twice each in turns: densities and each epoch's losses of
+           the two kinds within two bf16 steps and 1.5e-2 relative, or twice
+           the gap between two runs of one kind when larger (bf16 training
+           on the card is not bitwise repeatable), launches; joint epochs/s
+           of each; profile_train's
+           USSS joint step in the world of one and without a group: the
+           all-reduce calls and their device ms per step
+  dp_two_ranks  two ranks share the card over gloo (NCCL takes one rank per
+           device; the line before it names the backend): one USSS joint and
+           one WSSS adversarial step at full width in f32 on padded global
+           batches against the single-process step: losses (rtol 1e-4),
+           each net's gradient norm (rtol 1e-3), BN running stats (atol
+           1e-4), confusion equal, parameters as in the CPU tests; both
+           ranks' states bit-equal; the CPU tests' tighter measures reported
+
 Then one JSON line of kernel records (conv3x3's sums one serving chunk;
 the JSON summary file adds its ms per training step), and as the last line
 {"ok": true, "device": {...}}. f32 comparisons run with TF32 off (cuDNN and
@@ -253,6 +276,10 @@ SOURCES = ["conv3x3", "pool_bwd", "fused_ssim", "channel_sums", "phase_pool"]
 # [0.5, 1), the largest below 1. Two chunk widths give cuDNN other batches
 # (other algorithms), so their densities may differ by that step
 BF16_STEP = 2.0 ** -8
+# dp_world1's floors: densities within two bf16 steps, losses within 1.5e-2
+# relative, twice the largest gaps between two runs of the same kind seen on
+# the H100 (one bf16 step; 6.9e-3 in an epoch's loss): no repeat is bitwise
+DP_WORLD1_FLOORS = (2 * BF16_STEP, 1.5e-2)
 
 
 def phase(name, payload):
@@ -2757,6 +2784,363 @@ def eraser_phase(wsss_run, rsss_run):
             for name in wsss_run["launches"]}
 
 
+def dp_world1_phase(torch, tdir):
+    """demo_usss --n-devices 1 (a world of one: NCCL, the padded tail, every
+    all-reduce) beside the same driver with --tail pad and no process group,
+    on the train phase's scene and epochs, each twice in turns. bf16
+    training on the card is not bitwise repeatable (cuDNN's and the bilinear
+    upsample's backwards), so the densities and each epoch's losses of a
+    world-of-one run and a no-group run must agree within the larger of
+    DP_WORLD1_FLOORS and twice the gap between two runs of one kind;
+    launches equal to the derived ones;
+    joint epochs/s of each. Then profile_train's USSS joint step in the
+    world of one and without a group: the all-reduce calls a step and their
+    device ms (the world's device copies and NCCL kernels over the no-group
+    step's)."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.demos import demo_usss
+    from fcdgan_tpu_torch.parallel import mesh
+    from fcdgan_tpu_torch.tools import profile_train
+
+    counters = kernel_counters()
+    runs = {}
+    for tag, extra in (("world1", ("--n-devices", "1")), ("no_group", ("--tail", "pad")),
+                       ("world1_b", ("--n-devices", "1")), ("no_group_b", ("--tail", "pad"))):
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        out = demo_usss.main(train_args(tdir, f"_{tag}", TRAIN_EPOCHS, *extra))
+        runs[tag] = {"out": out, "seconds": time.perf_counter() - t0,
+                     "launches": launch_counts(counters),
+                     "density": open_raster(out["density_path"]).read_block()[..., 0]}
+    want, _ = derived_launches(torch, runs["world1"]["out"]["tiles"])
+
+    def gaps(a, b):
+        ra, rb = runs[a], runs[b]
+        em_a, em_b = ra["out"]["epoch_metrics"], rb["out"]["epoch_metrics"]
+        return (float(np.abs(ra["density"] - rb["density"]).max()),
+                max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for ph in em_a
+                    for x, y in zip(em_a[ph], em_b[ph]) for k in x))
+
+    cross = [gaps("world1", "no_group"), gaps("world1_b", "no_group_b")]
+    spread = [gaps("world1", "world1_b"), gaps("no_group", "no_group_b")]
+    tol = [max(floor, 2 * max(s[i] for s in spread))
+           for i, floor in enumerate(DP_WORLD1_FLOORS)]
+    prof = {n: profile_train.main(["--mode", "usss", "--steps", "3", "--top", "8",
+                                   "--n-devices", str(n)]) for n in (1, 0)}
+
+    def coll_ms(p):
+        return p["nccl_kernel_ms"] + p["dtod_copy_ms"]
+
+    k = _model_counts(torch, PATCH)
+    bn_passes = 2 * (k["g_bns"] + k["s_bns"])  # forward and backward of each BN
+    em = {t: r["out"]["epoch_metrics"] for t, r in runs.items()}
+    checks = {
+        "no_group_left": not mesh.group_active(),
+        "densities_within": all(c[0] <= tol[0] for c in cross),
+        "losses_within": all(c[1] <= tol[1] for c in cross),
+        "epochs": all(len(em[t][ph]) == n for t in em
+                      for ph, n in zip(("g", "s", "joint"), TRAIN_EPOCHS)),
+        **{f"launches_{t}": r["launches"][0] == want for t, r in runs.items()},
+        **{f"conv3x3_all_wgmma_{t}": all_wgmma(*r["launches"]) for t, r in runs.items()},
+        "allreduces_cover_every_bn": prof[1]["allreduce_calls"] >= bn_passes,
+        "no_collective_without_group": prof[0]["allreduce_calls"] == 0,
+    }
+    phase("dp_world1", {
+        "backend": "nccl", "tiles": runs["world1"]["out"]["tiles"],
+        "density_max_abs": {"world1_vs_no_group": [c[0] for c in cross],
+                            "same_kind": [s[0] for s in spread], "tol": tol[0]},
+        "loss_max_rel": {"world1_vs_no_group": [c[1] for c in cross],
+                         "same_kind": [s[1] for s in spread], "tol": tol[1]},
+        "density_bit_equal": [c[0] == 0.0 for c in cross],
+        "joint_epochs_per_s": {t: epoch_rates(r["out"]["epoch_seconds"])["joint"]
+                               for t, r in runs.items()},
+        "seconds": {t: r["seconds"] for t, r in runs.items()},
+        "allreduce_calls_per_step": prof[1]["allreduce_calls"],
+        "bn_passes_per_step": bn_passes,
+        "allreduce_device_ms_per_step": coll_ms(prof[1]) - coll_ms(prof[0]),
+        "collective_copies": {"world1": prof[1]["dtod_copies"],
+                              "no_group": prof[0]["dtod_copies"]},
+        "nccl_kernels_per_step": prof[1]["nccl_kernels"],
+        "step_ms_median": {"world1": prof[1]["step_ms_unprofiled_median"],
+                           "no_group": prof[0]["step_ms_unprofiled_median"]},
+        "device_busy_ms": {"world1": prof[1]["device_busy_ms"],
+                           "no_group": prof[0]["device_busy_ms"]},
+        "launches": runs["world1"]["launches"][0], "derived_launches": want,
+        "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_world1 checks failed: {checks}")
+    return runs["world1"]["launches"][0]
+
+
+DP_USSS_ITEMS = [0, 1, 2, 3, 4, 5, 6, 7, 0, 1]  # 8 tiles and 2 weight-0 duplicates
+DP_WSSS_PAIRS = WSSS_BATCH  # 15 pairs, wrap-padded to 16 for two ranks
+
+
+def _dp_batches():
+    """The padded global batches of dp_two_ranks: the USSS index batch of the
+    train phase's scene and 15 seeded WHU-sized pairs padded to 16."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(3)
+
+    def pair():
+        x = rng.normal(size=(DP_WSSS_PAIRS, WSSS_SIZE, WSSS_SIZE, 3)).astype(np.float32)
+        return x, (0.9 * x + 0.1 + rng.normal(scale=0.05, size=x.shape)).astype(np.float32)
+
+    c_x, c_y = pair()
+    c_y[:, 60:140, 50:150] += 2.0
+    nc_x, nc_y = pair()
+    c_ref = np.zeros((DP_WSSS_PAIRS, WSSS_SIZE, WSSS_SIZE, 1), np.float32)
+    c_ref[:, 60:140, 50:150] = 1.0
+    wsss = mesh.pad_batch_to_multiple(
+        {"c_x": c_x, "c_y": c_y, "c_ref": c_ref, "nc_x": nc_x, "nc_y": nc_y,
+         "weight": np.ones(DP_WSSS_PAIRS, np.float32)}, 2)
+    usss = {"item": np.asarray(DP_USSS_ITEMS, np.int64),
+            "weight": np.asarray([1.0] * 8 + [0.0] * 2, np.float32)}
+    return usss, wsss
+
+
+def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
+    """One USSS joint and one WSSS adversarial step in f32 on this rank's
+    slices of the padded global batches (the whole batches without a group),
+    from the seeded ``state``: per step, metrics, state dicts and the summed
+    gradients on the CPU, and the kernels' launches. With ``seed`` each
+    image element is scaled by (1 + 1e-7 N(0, 1)), about one float32
+    rounding (the witness)."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.parallel import mesh
+    from fcdgan_tpu_torch.train.optim import adam, rmsprop
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps, WSSSSteps
+
+    scaler = Normalize(*dataset_meanstd(os.path.join(tdir, "T1_stats.txt"),
+                                        os.path.join(tdir, "T2_stats.txt"), None))
+    ds = ScenePairDataset(os.path.join(tdir, "T1.tif"), os.path.join(tdir, "T2.tif"),
+                          ref_path=os.path.join(tdir, "ref.tif"), enhance=scaler,
+                          patch_size=(PATCH, PATCH), overlap_padding=(PAD, PAD))
+    vgg = VGG16Weights(vgg16_random_params(0), "cuda")
+    counters = kernel_counters()
+
+    def nets(*names):
+        made = {"g": Generator(3), "s": Segmentor(3), "d": Discriminator(3)}
+        for n in names:
+            made[n].load_state_dict(state[n])
+            made[n].cuda()
+        return [made[n] for n in names]
+
+    def result(m, **named):
+        torch.cuda.synchronize()
+        return {"metrics": {k: v.detach().cpu() for k, v in m.items()},
+                "state": {n: {k: v.detach().cpu() for k, v in net.state_dict().items()}
+                          for n, net in named.items()},
+                "grads": {n: {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+                              if p.grad is not None} for n, net in named.items()},
+                "launches": launch_counts(counters)[0]}
+
+    gen = torch.Generator("cuda")
+
+    def scaled(t):
+        if seed is None:
+            return t
+        gen.manual_seed(seed)
+        return t * (1 + 1e-7 * torch.randn(t.shape, device=t.device, generator=gen))
+
+    out = {}
+    g, s = nets("g", "s")
+    steps = USSSSteps(g, s, adam(g.parameters()), adam(s.parameters()), vgg,
+                      PerceptionConfig((29,), True), 0.4, 0.65, 0.0, ds.grid.interior_sizes(),
+                      (PAD, PAD))
+    db = DeviceSceneCache(ds, scaler, "cuda").complete(mesh.shard_batch(usss))
+    db["x"], db["y"] = scaled(db["x"]), scaled(db["y"])
+    reset_launches(counters)
+    m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+    out["usss_joint"] = result(m, g=g, s=s)
+    del steps, db
+    g, s, d = nets("g", "s", "d")
+    steps = WSSSSteps(g, s, d, adam(g.parameters()), rmsprop(s.parameters()),
+                      rmsprop(d.parameters()), vgg, PerceptionConfig((3,), False), 0.5, 0.0,
+                      0.2, 1.6, 1.0, 1.5, prob_thresh=0.6)
+    t = {k: scaled(torch.from_numpy(v).cuda()) if k.endswith(("_x", "_y"))
+         else torch.from_numpy(v).cuda() for k, v in mesh.shard_batch(wsss).items()}
+    reset_launches(counters)
+    m = steps.adversarial(t["c_x"], t["c_y"], t["c_ref"], t["nc_x"], t["nc_y"], t["weight"],
+                          1e-4, 5e-5)
+    out["wsss_adversarial"] = result(m, g=g, s=s, d=d)
+    del steps
+    gc.collect()
+    return out
+
+
+def dp_rank(index, tdir, store, state, usss, wsss, out_dir):
+    """One of dp_two_ranks' ranks: gloo on cuda:0, shared with the other."""
+    import torch
+
+    from fcdgan_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with mesh.world_group(index, 2, "file://" + store, torch.device("cuda", 0),
+                          backend="gloo"):
+        out = _dp_steps(torch, tdir, state, usss, wsss)
+    torch.save(out, os.path.join(out_dir, f"rank{index}.pt"))
+
+
+def _dp_compare(torch, got, want, witness, state):
+    """Rank 0's step against the one-process step on the same padded batch.
+    The gates are the card-vs-CPU parity bounds of train_parity (losses
+    rtol 1e-4, each net's gradient norm rtol 1e-3, BN running stats atol
+    1e-4), the confusion equal, and the CPU tests' parameter bound (within
+    1e-5 of the largest plus 1e-3 of the update wherever the gradients agree
+    within 1e-3). Reported beside them: the CPU tests' own measures (largest
+    relative metric and BN gaps, gradient gaps over the witness's, the same
+    step on the batch scaled by one float32 rounding), which the card's
+    half-batch convolutions, other cuDNN algorithms than the whole batch's,
+    exceed."""
+    m = {"metric_rel": 0.0, "bn_stats_max_abs": 0.0, "bn_stats_rel": 0.0, "grad_norm_rel": 0.0,
+         "grad_gap_over_witness": 0.0, "param_excess": 0.0, "worst_bn": None}
+    confusion_equal = torch.equal(got["metrics"]["confusion"], want["metrics"]["confusion"])
+    for k, v in want["metrics"].items():
+        if k != "confusion":
+            rel = abs(float(got["metrics"][k]) - float(v)) / max(abs(float(v)), 1e-12)
+            m["metric_rel"] = max(m["metric_rel"], rel)
+    same_keys = True
+    for net, grads in want["grads"].items():
+        same_keys &= sorted(got["grads"][net]) == sorted(grads)
+        if grads:
+            norm = torch.sqrt(sum(g.double().square().sum() for g in grads.values()))
+            got_norm = torch.sqrt(sum(got["grads"][net][k].double().square().sum()
+                                      for k in grads))
+            m["grad_norm_rel"] = max(m["grad_norm_rel"], float(abs(got_norm - norm) / norm))
+        for k, v in grads.items():
+            gap = float((got["grads"][net][k] - v).norm())
+            own = max(float((witness[net][k] - v).norm()), 1e-30)
+            m["grad_gap_over_witness"] = max(m["grad_gap_over_witness"], gap / own)
+        for k, v in want["state"][net].items():
+            p = got["state"][net][k]
+            if not v.is_floating_point():
+                same_keys &= torch.equal(p, v)
+                continue
+            if k.endswith(("running_mean", "running_var")):
+                gap = float((p - v).abs().max())
+                if gap > m["bn_stats_max_abs"]:
+                    m["bn_stats_max_abs"], m["worst_bn"] = gap, f"{net}.{k}"
+                m["bn_stats_rel"] = max(m["bn_stats_rel"],
+                                        gap / max(float(v.abs().max()), 1e-30))
+                continue
+            tol = 1e-5 * float(v.abs().max()) + 1e-3 * (v - state[net][k]).abs()
+            same = torch.ones_like(v, dtype=torch.bool)
+            if k in grads:
+                same = (got["grads"][net][k] - grads[k]).abs() <= 1e-3 * grads[k].abs()
+            excess = ((p - v).abs() - tol)[same]
+            if excess.numel():
+                m["param_excess"] = max(m["param_excess"], float(excess.max()))
+    m["confusion_equal"] = bool(confusion_equal)
+    ok = (confusion_equal and same_keys and m["metric_rel"] <= 1e-4
+          and m["bn_stats_max_abs"] <= 1e-4 and m["grad_norm_rel"] <= 1e-3
+          and m["param_excess"] <= 0)
+    return bool(ok), m
+
+
+def dp_two_ranks_phase(torch, tdir, work):
+    """Two ranks share the card over gloo (NCCL takes one rank per device):
+    one USSS joint step on the train phase's scene (8 tiles and 2 weight-0
+    duplicates) and one WSSS adversarial step on 15 seeded 200² pairs
+    wrap-padded to 16, f32 at full width, each rank on its half, against the
+    single-process step on the same padded batch (``_dp_compare``); both
+    ranks' states bit-equal; each rank's launches as the one process's."""
+    import torch.multiprocessing as mp
+
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+
+    phase("dp_two_ranks_backend", {"backend": "gloo", "ranks": 2, "device": "cuda:0",
+                                   "why": "NCCL takes one rank per device; both ranks "
+                                          "share the one card"})
+    torch.manual_seed(0)
+    state = {n: {k: v.clone() for k, v in net.state_dict().items()}
+             for n, net in (("g", Generator(3)), ("s", Segmentor(3)), ("d", Discriminator(3)))}
+    usss, wsss = _dp_batches()
+    out_dir = os.path.join(work, "dp_two_ranks")
+    os.makedirs(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()  # the cached blocks of earlier phases, for the ranks
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(tdir, os.path.join(out_dir, "rdv"), state, usss, wsss,
+                                      out_dir),
+                       nprocs=2, join=True, start_method="spawn")
+    rank_seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{i}.pt"), weights_only=False)
+             for i in (0, 1)]
+    want = _dp_steps(torch, tdir, state, usss, wsss)
+    witness = _dp_steps(torch, tdir, state, usss, wsss, seed=1)
+    results, checks = {}, {}
+    for step in ("usss_joint", "wsss_adversarial"):
+        ok, worst = _dp_compare(torch, ranks[0][step], want[step], witness[step]["grads"],
+                                state)
+        equal = all(torch.equal(ranks[1][step]["state"][n][k], v)
+                    for n, sd in ranks[0][step]["state"].items() for k, v in sd.items())
+        checks[f"{step}_within_bounds"] = ok
+        checks[f"{step}_ranks_bit_equal"] = equal
+        results[step] = {"worst": worst, "ranks_bit_equal": equal,
+                         "launches_rank0": ranks[0][step]["launches"],
+                         "launches_one_process": want[step]["launches"]}
+        checks[f"{step}_launches_as_one_process"] = (ranks[0][step]["launches"]
+                                                    == want[step]["launches"])
+    phase("dp_two_ranks", {"backend": "gloo", "ranks_seconds": rank_seconds,
+                           "usss_tiles": len(usss["item"]), "wsss_pairs": len(wsss["weight"]),
+                           **results, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_two_ranks checks failed: {checks}")
+    shutil.rmtree(out_dir)
+    return {name: sum(r[step]["launches"][name] for r in ranks for step in r)
+            for name in ranks[0]["usss_joint"]["launches"]}
+
+
+def serve_dp_phase(torch, work, smodel, fused):
+    """tools.infer --n-devices 1 on the 2048² scene: the streaming path in a
+    world of one (NCCL; each batch split over the ranks and gathered),
+    within the parity bound (1e-3) of the fused batch-exact density
+    ``fused``; 3 conv3x3 and 4 phase_pool launches a batch; px_per_s."""
+    import numpy as np
+
+    from fcdgan_tpu_torch.data.raster import open_raster
+    from fcdgan_tpu_torch.parallel import mesh
+    from fcdgan_tpu_torch.tools import infer
+
+    counters = kernel_counters()
+    batches = math.ceil(math.ceil(SCENE / (PATCH - 2 * PAD)) ** 2 / BATCH)
+    want = derived_serve_launches(counters, _model_counts(torch, PATCH), batches)
+    reset_launches(counters)
+    out = infer.run(infer.InferConfig(dir=work, smodel=smodel, ref_name="ref.tif",
+                                      batch_size=BATCH, n_devices=1, ext="_dp",
+                                      progress=False))
+    launches, variants = launch_counts(counters)
+    diff = float(np.abs(open_raster(out["density_path"]).read_block()[..., 0] - fused).max())
+    checks = {"within_parity": diff <= 1e-3, "streamed": not out["fused"],
+              "no_group_left": not mesh.group_active(),
+              "metrics_finite": all(math.isfinite(out[k]) for k in ("oa", "f1")),
+              "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
+    phase("serve_dp", {"backend": "nccl", "pixels": out["pixels"], "px_per_s": out["px_per_s"],
+                       "seconds": out["seconds"], "feed": out["feed"], "batches": batches,
+                       "max_abs_diff_to_fused": diff, "tol": 1e-3, "launches": launches,
+                       "derived_launches": want, "conv3x3_variants": variants,
+                       "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_dp checks failed: {checks}")
+    return launches
+
+
 def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
     main path's working type in ``step``, each row times its count per step
@@ -2816,12 +3200,13 @@ def main():
         serve_launches = serve_phase(torch, work, smodel)
         fused = serve_bs_phase(torch, work, smodel)
         serve_stream_phase(torch, work, smodel, fused)
+        more = {"serve_dp": serve_dp_phase(torch, work, smodel, fused)}
         parity_phase(torch, smodel, ds, gpu_cache)
         del gpu_cache, fused
         torch.cuda.empty_cache()
-        more = {"serve_window": serve_window_phase(torch, work, scene, smodel),
-                "usss_window": usss_window_phase(torch, work, scene),
-                "usss_host": usss_host_phase(torch, work, scene)}
+        more.update(serve_window=serve_window_phase(torch, work, scene, smodel),
+                    usss_window=usss_window_phase(torch, work, scene),
+                    usss_host=usss_host_phase(torch, work, scene))
         torch.cuda.empty_cache()
         launches, tdir, train = train_phase(torch, work)
         train_parity_phase(torch, tdir)
@@ -2830,6 +3215,8 @@ def main():
         more["remat"] = remat_phase(torch, tdir)
         more["resume"] = resume_phase(torch, tdir)
         more["profile"] = profile_phase(torch, tdir, work)
+        more["dp_world1"] = dp_world1_phase(torch, tdir)
+        more["dp_two_ranks"] = dp_two_ranks_phase(torch, tdir, work)
         shutil.rmtree(tdir)
         wsss_launches, wdir, wsss = wsss_phase(torch, work)
         wsss_parity_phase(torch, wdir)

@@ -9,9 +9,10 @@ feed normalizes on the device, and the host loaders run ``prefetch_depth``
 batches ahead on a background thread. The JAX fields ``platform`` and
 ``learning_rate`` (which no phase reads: the schedules set every rate)
 have no counterpart, so their flags are rejected.
-``unported``, ``unported_wsss`` and ``unported_rsss`` name the options
-whose values the port does not run: multi-device and multi-host training
-(ROADMAP.md A.4); the drivers raise ``NotImplementedError`` for them.
+``n_devices``, ``coordinator_address``, ``num_processes`` and
+``process_id`` are the JAX package's data-parallel and multi-host options
+(``parallel.mesh``, ``parallel.multihost``); ``check_training_options``
+checks their values and ``batch_tail`` pads the last batch under them.
 ``parse_cli`` is a copy of the JAX package's (:290-345): every dataclass
 field becomes ``--field-name``, parsed by its resolved annotation (bools
 accept 1/true/yes, tuples are comma-separated and cast per element).
@@ -23,7 +24,7 @@ import argparse
 import dataclasses
 import types
 import typing
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -236,28 +237,6 @@ class RSSSConfig:
     progress: bool = True
 
 
-def _unported_common(cfg) -> List[str]:
-    if cfg.n_devices or cfg.coordinator_address or cfg.num_processes:
-        return ["multi-device and multi-host training (--n-devices, "
-                "--coordinator-address, --num-processes)"]
-    return []
-
-
-def unported(cfg: USSSConfig) -> List[str]:
-    """The options of a USSS ``cfg`` whose values the port does not run."""
-    return _unported_common(cfg)
-
-
-def unported_wsss(cfg: WSSSConfig) -> List[str]:
-    """The options of a WSSS ``cfg`` whose values the port does not run."""
-    return _unported_common(cfg)
-
-
-def unported_rsss(cfg: RSSSConfig) -> List[str]:
-    """The options of an RSSS ``cfg`` whose values the port does not run."""
-    return _unported_common(cfg)
-
-
 def check_training_options(cfg) -> None:
     """The values of the training options every driver shares."""
     for name, value, values in (("siamese-stats", cfg.siamese_stats, ("joint", "split")),
@@ -268,13 +247,37 @@ def check_training_options(cfg) -> None:
             raise ValueError(f"--{name} must be one of {values}, not {value!r}")
     if cfg.checkpoint_every < 0:
         raise ValueError("--checkpoint-every must be 0 (off) or a positive epoch count")
+    if cfg.n_devices is not None and cfg.n_devices < 0:
+        raise ValueError(f"--n-devices must be 0 (off) or positive, not {cfg.n_devices}")
+    if asks_multihost(cfg):
+        if cfg.coordinator_address is None or cfg.process_id is None:
+            raise ValueError(
+                "multi-host needs --coordinator-address and --process-id "
+                f"(got {cfg.coordinator_address!r}, {cfg.process_id!r})")
+        if cfg.n_devices and cfg.n_devices != cfg.num_processes:
+            raise ValueError(
+                "multi-host runs one device per process: --n-devices must be unset or "
+                f"equal --num-processes ({cfg.num_processes}), not {cfg.n_devices}")
+
+
+def asks_multihost(cfg) -> bool:
+    """Whether the config asks for a multi-host world (JAX: num_processes > 1)."""
+    return bool(cfg.num_processes and cfg.num_processes > 1)
+
+
+def data_parallel(cfg) -> bool:
+    """Whether the config asks for a process group (JAX: a mesh)."""
+    return bool(cfg.n_devices) or asks_multihost(cfg)
 
 
 def batch_tail(cfg) -> str:
-    """The tail of the drivers' loaders (JAX demo_usss.py:112-122 on one
-    device): ``pad`` wrap-pads the last batch with weight-0 duplicates,
-    ``auto`` and ``short`` run it at its true size."""
-    return "pad" if cfg.tail == "pad" else "short"
+    """The tail of the drivers' loaders (JAX demo_usss.py:112-122): ``pad``
+    wrap-pads the last batch with weight-0 duplicates, ``short`` runs it at
+    its true size, and ``auto`` is ``short`` on one device and ``pad`` under
+    ``--n-devices`` or multi-host (the fixed padded shape of a mesh)."""
+    if cfg.tail == "short" or (cfg.tail == "auto" and not data_parallel(cfg)):
+        return "short"
+    return "pad"
 
 
 def _parse_bool(s: str) -> bool:

@@ -53,7 +53,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..config import RSSSConfig, batch_tail, check_training_options, parse_cli, unported_rsss
+from ..config import RSSSConfig, batch_tail, check_training_options, parse_cli
 from ..data.datasets import OSCDDataset, ScenePairDataset
 from ..data.erasers import build_eraser
 from ..data.device_cache import DeviceOSCDCache
@@ -68,6 +68,8 @@ from ..models.discriminator import Discriminator
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
+from ..parallel import mesh
+from ..parallel.multihost import put_multihost
 from ..train import schedules
 from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
@@ -83,11 +85,6 @@ ADV_KEYS = ("g_loss", "d_loss", "s_loss", "s_d_loss", "l1_loss", "r_loss",
 
 
 def _check_supported(cfg: RSSSConfig) -> None:
-    missing = unported_rsss(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
-            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
     check_training_options(cfg)
@@ -104,14 +101,15 @@ def tile_feed(cfg: RSSSConfig, dataset, test_dataset, device):
     """(train feed, test feed, train cache, test cache) of the JAX driver's
     choice (demo_rsss.py:95-135): the resident tile stacks of both lists,
     else for each list ``NativeOSCDBatchLoader``, else ``BatchLoader`` (no
-    caches). ``--tile-cache on`` raises when the stacks cannot be resident."""
-    if (cfg.tile_cache != "off" and DeviceOSCDCache.supports(dataset)
+    caches). ``--tile-cache on`` raises when the stacks cannot be resident;
+    multi-host takes no stacks (demo_rsss.py:102)."""
+    if (cfg.tile_cache != "off" and not mesh.multihost() and DeviceOSCDCache.supports(dataset)
             and DeviceOSCDCache.supports(test_dataset)):
         return ("resident", "resident", DeviceOSCDCache(dataset, device),
                 DeviceOSCDCache(test_dataset, device))
     if cfg.tile_cache == "on":
-        raise RuntimeError("--tile-cache on: needs no --random-eraser and the tiles within "
-                           "FCDGAN_TILE_CACHE_MAX_MB")
+        raise RuntimeError("--tile-cache on: needs a single host, no --random-eraser and the "
+                           "tiles within FCDGAN_TILE_CACHE_MAX_MB")
     feeds = ["native" if NativeOSCDBatchLoader.supports(ds) else "host"
              for ds in (dataset, test_dataset)]
     return feeds[0], feeds[1], None, None
@@ -136,7 +134,13 @@ def _accuracy(ev: Evaluator) -> Dict[str, float]:
 
 def _scene_scalers(img_dir: str, txt_name: str, patch_size, stats_name: str) -> List:
     """Per-scene normalizers with cached ``{image}_{stats_name}.txt`` files
-    beside the images (Demo_RSSS.py:75-97, demo_rsss.py:42-58)."""
+    beside the images (Demo_RSSS.py:75-97, demo_rsss.py:42-58); rank 0 of a
+    process group writes the missing caches, the others read them."""
+    with mesh.lead_first():
+        return _read_scene_scalers(img_dir, txt_name, patch_size, stats_name)
+
+
+def _read_scene_scalers(img_dir: str, txt_name: str, patch_size, stats_name: str) -> List:
     scalers = []
     for img_x, img_y, _, _ in OSCDDataset(img_dir, txt_name).pathlist:
         cur_dir, name_x = os.path.split(img_x)
@@ -150,13 +154,24 @@ def _scene_scalers(img_dir: str, txt_name: str, patch_size, stats_name: str) -> 
 
 
 def run_profiled(cfg) -> Dict:
-    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set."""
-    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
-        return run(cfg)
+    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set,
+    one trace per rank."""
+    _check_supported(cfg)
+    return mesh.run_world(_train_profiled, cfg)
 
 
 def run(cfg: RSSSConfig) -> Dict:
+    """The driver in the world its options ask for (``parallel.mesh``)."""
     _check_supported(cfg)
+    return mesh.run_world(_train, cfg)
+
+
+def _train_profiled(cfg: RSSSConfig) -> Dict:
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return _train(cfg)
+
+
+def _train(cfg: RSSSConfig) -> Dict:
     device = resolve_device(cfg.device)
     dtype = _DTYPES[cfg.compute_dtype]
     torch.manual_seed(cfg.seed)
@@ -185,6 +200,7 @@ def run(cfg: RSSSConfig) -> Dict:
                           cfg.seed, tail)
 
     def put(batch, cache):
+        batch = put_multihost(batch)  # this rank's slice of the global batch
         if cache is not None:
             return cache.complete(batch)
         return device_put_batch({k: batch[k] for k in FIELDS + ("weight",)}, device)
@@ -222,7 +238,8 @@ def run(cfg: RSSSConfig) -> Dict:
     def checked(step, phase, i, *nets):
         return nan_checked(step, phase, i, *nets) if cfg.debug_nans else step()
 
-    writer = ScalarWriter(comment="RSSS_OSCD{}".format(cfg.ext), enabled=cfg.log_tensorboard)
+    writer = ScalarWriter(comment="RSSS_OSCD{}".format(cfg.ext),
+                          enabled=cfg.log_tensorboard and mesh.writes())
     seconds = {"g": [], "adv": [], "test": [], "infer": 0.0}
     metrics = {"g": [], "adv": [], "test": []}
 
@@ -279,14 +296,17 @@ def run(cfg: RSSSConfig) -> Dict:
         metrics["adv"].append({**av.as_dict(), **_accuracy(ev)})
 
         # the test evaluation (Demo_RSSS.py:399-447); a wrap-padded tail is
-        # trimmed to its real tiles, so train-mode BN sees no duplicates
+        # trimmed to its real tiles, so train-mode BN sees no duplicates, on
+        # one device; under a process group it keeps its padded tail
+        # (demo_rsss.py:259-262)
         t0 = time.perf_counter()
         test_av = EpochAverages(1)
         evaluate = (steps.eval_confusion_train if cfg.test_eval_bn == "train"
                     else steps.eval_confusion)
         for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
             n_real = int(np.asarray(batch["weight"]).sum())
-            if cfg.test_eval_bn == "train" and n_real < len(batch["weight"]):
+            if (cfg.test_eval_bn == "train" and n_real < len(batch["weight"])
+                    and not mesh.group_active()):
                 batch = {k: v[:n_real] for k, v in batch.items()}
             db = put(batch, test_cache)
             cm, _ = evaluate(db["x"], db["y"], db["ref"], db["item"], db["weight"])
@@ -316,10 +336,12 @@ def run(cfg: RSSSConfig) -> Dict:
     density_name = "{}{}".format(cfg.out_name_density, cfg.ext)
     color_name = "{}{}".format(cfg.out_name_binary, cfg.ext)
     for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
-        db = put(batch, test_cache)
-        cmap = dequantize(quantize(steps.infer(db["x"], db["y"]), cfg.density_dtype).cpu(),
-                          cfg.density_dtype)
-        ref = db["ref"].cpu().numpy()
+        db = put(batch, test_cache)  # each rank its slice; gathered before the writes
+        cmap = dequantize(quantize(mesh.gather(steps.infer(db["x"], db["y"])),
+                                   cfg.density_dtype).cpu(), cfg.density_dtype)
+        ref = mesh.gather(db["ref"]).cpu().numpy()
+        if not mesh.writes():
+            continue
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
             if batch["weight"][ns] == 0:
@@ -343,23 +365,25 @@ def run(cfg: RSSSConfig) -> Dict:
     smodel_path = os.path.join(out_dir, "SModel.pkl")
     gmodel_path = os.path.join(cfg.out_g_model_dir, "GModel.pkl")
     dmodel_path = os.path.join(out_dir, "DModel.pkl")
-    if cfg.save_checkpoints:
+    if cfg.save_checkpoints and mesh.writes():
         save_net(smodel_path, net_s)
         save_net(gmodel_path, net_g)
         save_net(dmodel_path, net_d)
     writer.close()
-    para_path = write_para_txt(os.path.join(out_dir, "Para.txt"), {
-        "perception_weight": cfg.perception_weight,
-        "ssim_weight": cfg.ssim_weight,
-        "perception_perBand": cfg.perception_per_band,
-        "perception_layer": cfg.perception_layer,
-        "l1_weight": cfg.l1_weight,
-        "g_weight": cfg.g_weight,
-        "d_weight": cfg.d_weight,
-        "r_weight": cfg.r_weight,
-        "discriminator_continuous": cfg.discriminator_continuous,
-        "prob_thresh": cfg.prob_thresh,
-    }, acc=acc, tips=cfg.tips)
+    para_path = os.path.join(out_dir, "Para.txt")
+    if mesh.writes():
+        write_para_txt(para_path, {
+            "perception_weight": cfg.perception_weight,
+            "ssim_weight": cfg.ssim_weight,
+            "perception_perBand": cfg.perception_per_band,
+            "perception_layer": cfg.perception_layer,
+            "l1_weight": cfg.l1_weight,
+            "g_weight": cfg.g_weight,
+            "d_weight": cfg.d_weight,
+            "r_weight": cfg.r_weight,
+            "discriminator_continuous": cfg.discriminator_continuous,
+            "prob_thresh": cfg.prob_thresh,
+        }, acc=acc, tips=cfg.tips)
     return {
         "evaluator": acc,
         "test_evaluator": test_acc,

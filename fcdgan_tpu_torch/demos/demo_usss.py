@@ -25,6 +25,16 @@ in ``{outdir}/resume{ext}.ckpt``: completed epochs are skipped),
 ``--profile-dir`` (a ``torch.profiler`` trace of the whole run) and
 ``--debug-nans`` (``train.loops.nan_checked``).
 
+Data parallel (``parallel.mesh``), as the JAX driver's mesh: ``--n-devices
+N`` runs N ranks, one per device, and ``--num-processes P --process-id i
+--coordinator-address host:port`` makes this process rank i of a
+multi-host world. Every rank reads the same global batch, wrap-padded (the
+tail is ``pad``) and cut into rank slices; the step's statistics, losses,
+gradients and metrics are the global batch's. Under ``--n-devices`` each
+rank holds the resident scene; rank 0 writes the artifacts and returns the
+result. Multi-host turns the resident caches and the device normalize
+off, and every process writes its full artifact set.
+
 Run (on the GPU unless ``--device cpu``):
 
     python -m fcdgan_tpu_torch.demos.demo_usss --dir /data --ext _run1
@@ -46,7 +56,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..config import USSSConfig, batch_tail, check_training_options, parse_cli, unported
+from ..config import USSSConfig, batch_tail, check_training_options, parse_cli
 from ..data.datasets import ScenePairDataset
 from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
 from ..data.normalize import Normalize
@@ -64,6 +74,8 @@ from ..io.records import (ScalarWriter, segmentation_summary, timestamped_para_p
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
+from ..parallel import mesh
+from ..parallel.multihost import put_multihost
 from ..train import schedules
 from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam
@@ -79,11 +91,6 @@ LOSS_LABELS = ("NetLoss Loss", "generator_loss Loss", "l1_loss Loss",
 
 
 def _check_supported(cfg: USSSConfig) -> None:
-    missing = unported(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
-            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
     check_training_options(cfg)
@@ -99,24 +106,26 @@ def scene_feed(cfg: USSSConfig, dataset, scaler, device):
     rolling window, else the native loader (raw tiles with a
     ``DeviceNormalizer`` placer when it can), else ``BatchLoader``.
     ``--scene-cache on|window`` and ``--device-normalize on`` raise when they
-    cannot be met."""
+    cannot be met. Multi-host takes neither cache nor the device normalize
+    (demo_usss.py:100, 127)."""
     cache = None
-    if cfg.scene_cache != "off":
+    multihost = mesh.multihost()
+    if cfg.scene_cache != "off" and not multihost:
         if cfg.scene_cache != "window" and DeviceSceneCache.supports(dataset):
             cache, feed = DeviceSceneCache(dataset, scaler, device), "resident"
         elif DeviceSceneWindowCache.supports(dataset):
             cache, feed = DeviceSceneWindowCache(dataset, scaler, device), "window"
     if cfg.scene_cache in ("on", "window") and cache is None:
         raise RuntimeError(
-            "--scene-cache {}: needs a Normalize enhance and the scene (or one tile-row "
-            "slab) within FCDGAN_SCENE_CACHE_MAX_MB / FCDGAN_SCENE_WINDOW_MB".format(
+            "--scene-cache {}: needs a single host, a Normalize enhance and the scene (or "
+            "one tile-row slab) within FCDGAN_SCENE_CACHE_MAX_MB / FCDGAN_SCENE_WINDOW_MB".format(
                 cfg.scene_cache))
     if cache is not None:
         return feed, cache, cache.loader(cfg.batch_size, shuffle=True, seed=cfg.seed,
                                          tail=batch_tail(cfg)), None
     placer = None
     if NativeSceneBatchLoader.supports(dataset):
-        raw = (cfg.device_normalize != "off"
+        raw = (cfg.device_normalize != "off" and not multihost
                and NativeSceneBatchLoader.supports_device_normalize(dataset))
         loader = NativeSceneBatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
                                         device_normalize=raw)
@@ -146,13 +155,23 @@ def _log_accuracy(writer: ScalarWriter, ev: Evaluator, step: int, prefix: str = 
 
 def run_profiled(cfg) -> Dict:
     """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set
-    (JAX demo_usss.py:469-474)."""
-    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
-        return run(cfg)
+    (JAX demo_usss.py:469-474), one trace per rank."""
+    _check_supported(cfg)
+    return mesh.run_world(_train_profiled, cfg)
 
 
 def run(cfg: USSSConfig) -> Dict:
+    """The driver in the world its options ask for (``parallel.mesh``)."""
     _check_supported(cfg)
+    return mesh.run_world(_train, cfg)
+
+
+def _train_profiled(cfg: USSSConfig) -> Dict:
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return _train(cfg)
+
+
+def _train(cfg: USSSConfig) -> Dict:
     device = resolve_device(cfg.device)
     dtype = _DTYPES[cfg.compute_dtype]
     torch.manual_seed(cfg.seed)
@@ -172,7 +191,8 @@ def run(cfg: USSSConfig) -> Dict:
                                 overlap_padding=(0, 0))
     sp1 = os.path.join(cfg.dir, "{}_{}.txt".format(stem1, cfg.stats_name))
     sp2 = os.path.join(cfg.dir, "{}_{}.txt".format(stem2, cfg.stats_name))
-    scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
+    with mesh.lead_first():  # one rank writes a missing cache, the others read it
+        scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
     dataset = ScenePairDataset(img_x, img_y, ref_path=ref_path, out_path=out_path,
                                enhance=scaler, patch_size=cfg.patch_size,
                                overlap_padding=cfg.overlap_padding)
@@ -180,6 +200,7 @@ def run(cfg: USSSConfig) -> Dict:
     feed, cache, loader, placer = scene_feed(cfg, dataset, scaler, device)
 
     def put(batch):
+        batch = put_multihost(batch)  # this rank's slice of the global batch
         if cache is not None:
             return cache.complete(batch)
         db = device_put_batch(batch, device)
@@ -209,7 +230,8 @@ def run(cfg: USSSConfig) -> Dict:
         meta = ckpt.restore(nets["s"])
         starts = TrainCheckpointer.start_epochs(meta, ("g", "s", "joint"))
         print("Resuming from phase {} epoch {}".format(meta["phase"], meta["epoch"]))
-    writer = ScalarWriter(comment="USSS{}".format(cfg.ext), enabled=cfg.log_tensorboard)
+    writer = ScalarWriter(comment="USSS{}".format(cfg.ext),
+                          enabled=cfg.log_tensorboard and mesh.writes())
     seconds = {"g": [], "s": [], "joint": [], "infer": 0.0}
     metrics = {"g": [], "s": [], "joint": []}
 
@@ -271,7 +293,8 @@ def run(cfg: USSSConfig) -> Dict:
     acc = Evaluator(num_class=len(cfg.gt_map))
     roc = RocCurve()
     if cache is not None:
-        _fused_inference(cfg, cache, steps, dataset, acc, roc, out_color_path)
+        if mesh.writes():  # eval mode, no collective: the writers alone run it
+            _fused_inference(cfg, cache, steps, dataset, acc, roc, out_color_path)
     else:
         _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device)
     seconds["infer"] = time.perf_counter() - t0
@@ -283,20 +306,21 @@ def run(cfg: USSSConfig) -> Dict:
     # -- checkpoints + Para txt (Demo_USSS.py:477-501) ----------------------
     smodel_path = os.path.join(outdir, "SModel{}.pkl".format(cfg.ext))
     gmodel_path = os.path.join(outdir, "GModel{}.pkl".format(cfg.ext))
-    if cfg.save_checkpoints:
+    if cfg.save_checkpoints and mesh.writes():
         save_net(smodel_path, net_s)
         save_net(gmodel_path, net_g)
     writer.close()
     para_path = timestamped_para_path(outdir, cfg.ext)
-    write_para_txt(para_path, {
-        "perception_weight": cfg.perception_weight,
-        "ssim_weight": cfg.ssim_weight,
-        "perception_perBand": cfg.perception_per_band,
-        "perception_layer": cfg.perception_layer,
-        "l1_weight": cfg.l1_weight,
-        "discriminator_continuous": cfg.discriminator_continuous,
-        "prob_thresh": cfg.prob_thresh,
-    }, acc=acc, tips=cfg.tips)
+    if mesh.writes():
+        write_para_txt(para_path, {
+            "perception_weight": cfg.perception_weight,
+            "ssim_weight": cfg.ssim_weight,
+            "perception_perBand": cfg.perception_per_band,
+            "perception_layer": cfg.perception_layer,
+            "l1_weight": cfg.l1_weight,
+            "discriminator_continuous": cfg.discriminator_continuous,
+            "prob_thresh": cfg.prob_thresh,
+        }, acc=acc, tips=cfg.tips)
     return {
         "evaluator": acc,
         "auc": roc.auc(),
@@ -344,7 +368,8 @@ def _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device) -> No
     """The tile loop of the host feeds (JAX demo_usss.py:357-438): host tiles
     from ``BatchLoader`` through the eval-mode S, each download stitched by a
     writer thread into the density and color rasters, the metrics over each
-    tile's interior."""
+    tile's interior. Under a process group each rank runs its slice of each
+    batch and the densities are gathered to every rank; the writers write."""
     loader = BatchLoader(dataset, cfg.batch_size, fields=("x", "y", "item", "ref"),
                          shuffle=False)
     infer = nhwc_infer(steps.infer)
@@ -353,11 +378,14 @@ def _tile_inference(cfg, steps, dataset, acc, roc, out_color_path, device) -> No
     total = len(dataset)
 
     def compute(batch):
-        db = device_put_batch({"x": batch["x"], "y": batch["y"]}, device)
-        return Download(quantize(infer(db["x"], db["y"]), cfg.density_dtype))
+        local = put_multihost({"x": batch["x"], "y": batch["y"], "weight": batch["weight"]})
+        db = device_put_batch({"x": local["x"], "y": local["y"]}, device)
+        return Download(quantize(mesh.gather(infer(db["x"], db["y"])), cfg.density_dtype))
 
     def process(dl: Download, batch):
         nonlocal out_color, processed
+        if not mesh.writes():
+            return
         cmap = dequantize(dl.result(), cfg.density_dtype)
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns in range(len(batch["weight"])):

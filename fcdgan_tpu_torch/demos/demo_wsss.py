@@ -30,6 +30,11 @@ The training options are the JAX driver's (see ``demo_usss``):
 ``--checkpoint-every`` / ``--resume`` (``{out_dir}/resume.ckpt``),
 ``--profile-dir`` and ``--debug-nans``. ``--density-dtype`` is accepted and
 read nowhere, as in the JAX driver: the density images are uint8.
+``--n-devices`` and the multi-host options run as in ``demo_usss``: each
+rank trains on its slice of every global batch, the resident stacks stay on
+under ``--n-devices`` (off under multi-host), and the final train-mode
+inference normalizes with the global batch statistics, its densities
+gathered to every rank before the writes.
 
 Run (on the GPU unless ``--device cpu``):
 
@@ -54,7 +59,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..config import WSSSConfig, batch_tail, check_training_options, parse_cli, unported_wsss
+from ..config import WSSSConfig, batch_tail, check_training_options, parse_cli
 from ..data.datasets import WHUDataset, WHUPairDataset
 from ..data.erasers import build_eraser
 from ..data.device_cache import DeviceWHUCache, IndexBatchLoader, IndexPairBatchLoader
@@ -71,6 +76,8 @@ from ..models.discriminator import Discriminator
 from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
+from ..parallel import mesh
+from ..parallel.multihost import put_multihost, to_host
 from ..train import schedules
 from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
@@ -84,11 +91,6 @@ ADV_KEYS = ("d_loss", "g_loss", "s_loss", "l1_loss", "nc_loss", "s_d_loss")
 
 
 def _check_supported(cfg: WSSSConfig) -> None:
-    missing = unported_wsss(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to fcdgan_tpu_torch: {}; see ROADMAP.md (queue A, item 4, "
-            "multi-device and multi-host)".format("; ".join(missing)))
     if cfg.compute_dtype not in _DTYPES:
         raise ValueError(f"--compute-dtype must be one of {sorted(_DTYPES)}")
     check_training_options(cfg)
@@ -104,11 +106,11 @@ def slice_feed(cfg: WSSSConfig, pair_ds, scaler, device, eraser=None):
     loader) of the JAX driver's choice (demo_wsss.py:79-145): the resident
     stacks, else for each loader on its own the native slice loader, else
     the Python one. ``--slice-cache on`` raises when the stacks cannot be
-    resident."""
+    resident; multi-host takes no stacks (demo_wsss.py:91)."""
     dirs = (cfg.img_dir_x, cfg.img_dir_y, cfg.ref_dir, cfg.label_dir)
     reset = lambda e: pair_ds.order_reset()  # noqa: E731  re-pairs each epoch (Demo_WSSS.py:233)
     tail = batch_tail(cfg)
-    if cfg.slice_cache != "off" and DeviceWHUCache.supports(pair_ds):
+    if cfg.slice_cache != "off" and not mesh.multihost() and DeviceWHUCache.supports(pair_ds):
         cache = DeviceWHUCache(pair_ds, scaler, device)
         return ("resident", "resident", cache,
                 IndexPairBatchLoader(pair_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
@@ -116,8 +118,9 @@ def slice_feed(cfg: WSSSConfig, pair_ds, scaler, device, eraser=None):
                 IndexBatchLoader(pair_ds.nc_len, cfg.unc_batch_size, shuffle=True,
                                  seed=cfg.seed, tail=tail))
     if cfg.slice_cache == "on":
-        raise RuntimeError("--slice-cache on: needs the fixed pairing, no --random-eraser, "
-                           "and changed and unchanged slices within FCDGAN_SLICE_CACHE_MAX_MB")
+        raise RuntimeError("--slice-cache on: needs a single host, the fixed pairing, no "
+                           "--random-eraser, and changed and unchanged slices within "
+                           "FCDGAN_SLICE_CACHE_MAX_MB")
     unc_ds = WHUDataset(*dirs, scale=scaler, label_selected="0", transforms=eraser)
     if NativeWHUPairBatchLoader.supports(pair_ds):
         feed, pair_loader = "native", NativeWHUPairBatchLoader(
@@ -140,13 +143,24 @@ def _put(batch, keys, device) -> dict:
 
 
 def run_profiled(cfg) -> Dict:
-    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set."""
-    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
-        return run(cfg)
+    """``run`` under a ``torch.profiler`` trace when ``profile_dir`` is set,
+    one trace per rank."""
+    _check_supported(cfg)
+    return mesh.run_world(_train_profiled, cfg)
 
 
 def run(cfg: WSSSConfig) -> Dict:
+    """The driver in the world its options ask for (``parallel.mesh``)."""
     _check_supported(cfg)
+    return mesh.run_world(_train, cfg)
+
+
+def _train_profiled(cfg: WSSSConfig) -> Dict:
+    with maybe_profile(cfg.profile_dir, cuda=cfg.device != "cpu"):
+        return _train(cfg)
+
+
+def _train(cfg: WSSSConfig) -> Dict:
     device = resolve_device(cfg.device)
     dtype = _DTYPES[cfg.compute_dtype]
     torch.manual_seed(cfg.seed)
@@ -162,7 +176,8 @@ def run(cfg: WSSSConfig) -> Dict:
     stats_ds = WHUDataset(*dirs, "-1")
     sp1 = os.path.join(cfg.img_dir_x, "{}_meanstd.txt".format(cfg.stats_name))
     sp2 = os.path.join(cfg.img_dir_y, "{}_meanstd.txt".format(cfg.stats_name))
-    scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
+    with mesh.lead_first():  # one rank writes a missing cache, the others read it
+        scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
 
     # -- datasets and their feed (Demo_WSSS.py:84-92) -------------------------
     # the random eraser on the unchanged training slices (Demo_RSSS.py:96,128
@@ -177,11 +192,13 @@ def run(cfg: WSSSConfig) -> Dict:
     c_ds = pair_ds.c_ds
 
     def put_pair(batch):
+        batch = put_multihost(batch)  # this rank's slice of the global batch
         if cache is not None:
             return cache.complete_pair(batch)
         return _put(batch, ("c_x", "c_y", "c_ref", "nc_x", "nc_y", "weight"), device)
 
     def put_unc(batch):
+        batch = put_multihost(batch)
         if cache is not None:
             return cache.complete_unc(batch)
         return _put(batch, ("x", "y", "weight"), device)
@@ -221,7 +238,7 @@ def run(cfg: WSSSConfig) -> Dict:
         return nan_checked(step, phase, i, *nets) if cfg.debug_nans else step()
 
     writer = ScalarWriter(comment="Building_WSSS{}".format(cfg.ext),
-                          enabled=cfg.log_tensorboard)
+                          enabled=cfg.log_tensorboard and mesh.writes())
     seconds = {"g": [], "adv": [], "infer": 0.0}
     metrics = {"g": [], "adv": []}
 
@@ -289,14 +306,19 @@ def run(cfg: WSSSConfig) -> Dict:
     # the changed slices from the resident stacks, else through BatchLoader
     # (demo_wsss.py:297-305)
     # (with --tail pad the duplicates of a padded tail enter S's batch
-    # statistics, as in the JAX driver, and are not written)
+    # statistics, as in the JAX driver, and are not written; under a process
+    # group each rank runs its slice of the batch with the global statistics,
+    # and the densities are gathered before the writes, demo_wsss.py:318-327)
     tail = batch_tail(cfg)
     test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size, tail=tail)
                    if cache is not None
                    else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail=tail))
     for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
-        db = cache.complete_c(batch) if cache is not None else _put(batch, ("x", "y"), device)
-        cmap = steps.infer_train_mode(db["x"], db["y"])[..., 0].cpu().numpy()
+        local = put_multihost(batch)
+        db = cache.complete_c(local) if cache is not None else _put(local, ("x", "y"), device)
+        cmap = to_host(steps.infer_train_mode(db["x"], db["y"]))[..., 0]
+        if not mesh.writes():
+            continue
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
             if batch["weight"][ns] == 0:
@@ -323,23 +345,25 @@ def run(cfg: WSSSConfig) -> Dict:
     smodel_path = os.path.join(out_dir, "SModel.pkl")
     gmodel_path = os.path.join(cfg.out_g_model_dir, "GModel.pkl")
     dmodel_path = os.path.join(out_dir, "DModel.pkl")
-    if cfg.save_checkpoints:
+    if cfg.save_checkpoints and mesh.writes():
         save_net(smodel_path, net_s)
         save_net(gmodel_path, net_g)
         save_net(dmodel_path, net_d)
     writer.close()
-    para_path = write_para_txt(os.path.join(out_dir, "Para.txt"), {
-        "perception_weight": cfg.perception_weight,
-        "ssim_weight": cfg.ssim_weight,
-        "perception_perBand": cfg.perception_per_band,
-        "perception_layer": cfg.perception_layer,
-        "l1_weight": cfg.l1_weight,
-        "nc_weight": cfg.nc_weight,
-        "d_weight": cfg.d_weight,
-        "g_weight": cfg.g_weight,
-        "discriminator_continuous": cfg.discriminator_continuous,
-        "prob_thresh": cfg.prob_thresh,
-    }, acc=acc, tips=cfg.tips)
+    para_path = os.path.join(out_dir, "Para.txt")
+    if mesh.writes():
+        write_para_txt(para_path, {
+            "perception_weight": cfg.perception_weight,
+            "ssim_weight": cfg.ssim_weight,
+            "perception_perBand": cfg.perception_per_band,
+            "perception_layer": cfg.perception_layer,
+            "l1_weight": cfg.l1_weight,
+            "nc_weight": cfg.nc_weight,
+            "d_weight": cfg.d_weight,
+            "g_weight": cfg.g_weight,
+            "discriminator_continuous": cfg.discriminator_continuous,
+            "prob_thresh": cfg.prob_thresh,
+        }, acc=acc, tips=cfg.tips)
     return {
         "evaluator": acc,
         "out_dir": out_dir,

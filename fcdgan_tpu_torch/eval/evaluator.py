@@ -6,7 +6,9 @@ metrics.py:6-85), trimmed to what serving and USSS training report.
 coded {1 unchanged, 2 changed} against {0, 1} predictions (metrics.py:67-72;
 Demo_USSS.py:64-65). ``confusion_update`` is the on-device counterpart
 (evaluator.py:109-135): the (C, C) matrix of one batch, so the train steps
-add it up on the device and the host reads it once per epoch.
+add it up on the device and the host reads it once per epoch. Under a
+process group the matrix is summed over the ranks (JAX evaluator.py:
+131-134), so each rank holds the global batch's.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 
 class Evaluator:
@@ -69,7 +73,8 @@ def confusion_update(gt: torch.Tensor, pre: torch.Tensor, gt_map: Sequence[float
                      ) -> torch.Tensor:
     """(C, C) float32 confusion matrix of one batch, on ``gt``'s device:
     row i counts ``gt == gt_map[i]``, column j ``pre == pre_map[j]``, each
-    position weighted by ``valid`` (a same-shape {0, 1} mask) when given."""
+    position weighted by ``valid`` (a same-shape {0, 1} mask) when given;
+    summed over the ranks under a process group."""
     if len(gt_map) != len(pre_map):
         raise ValueError("gt_map and pre_map need one code per class")
     gt = gt.reshape(-1)
@@ -78,4 +83,4 @@ def confusion_update(gt: torch.Tensor, pre: torch.Tensor, gt_map: Sequence[float
         valid.reshape(-1).to(torch.float32)
     rows = torch.stack([(gt == g).to(torch.float32) for g in gt_map])
     cols = torch.stack([(pre == p).to(torch.float32) for p in pre_map])
-    return torch.einsum("in,jn,n->ij", rows, cols, w)
+    return mesh.all_reduce_sum(torch.einsum("in,jn,n->ij", rows, cols, w))[0]

@@ -19,6 +19,10 @@ Port of the JAX package's ``eval/inference.py`` (:27-307) on one device:
     by ``DeviceNormalizer`` when it can, else float32, or from the Python
     ``BatchLoader`` (``use_native=False``, or no native library). The
     result names the ``feed``: resident, window, native_raw, native, host.
+    Under a process group (``parallel.mesh``) the fused passes are skipped,
+    as the JAX ``mesh is None`` condition skips them, and each rank runs
+    its slice of each batch (``mesh.split_apply``); the densities are
+    gathered to every rank before the writes, which the writing ranks do.
 
 Models here are NHWC functions ``infer(x, y) -> (B, h, w, 1)`` float32
 (``nhwc_infer`` wraps the NCHW Segmentor).
@@ -38,6 +42,7 @@ from .. import native
 from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
 from ..data.pipeline import (BatchLoader, DeviceNormalizer, NativeSceneBatchLoader,
                              device_put_batch, prefetch, upload)
+from ..parallel import mesh
 from ..utils.download import Download, check_density_dtype, dequantize, quantize
 
 
@@ -156,7 +161,7 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         raise ValueError(f"device_feed must be auto, cache or stream, not {device_feed!r}")
     device = torch.device(device)
     cache = None
-    if device_feed == "auto":
+    if device_feed == "auto" and not mesh.group_active():
         if DeviceSceneCache.supports(dataset):
             cache, feed = DeviceSceneCache(dataset, dataset.enhance, device), "resident"
         elif DeviceSceneWindowCache.supports(dataset):
@@ -173,9 +178,8 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         return {"density": density, "pixels": int(density.size), "seconds": seconds,
                 "px_per_s": density.size / max(seconds, 1e-9), "fused": True, "feed": feed}
 
-    infer, dequant = quantized_infer(
-        cropped_infer(nhwc_infer(model), dataset.overlap_padding, dataset.patch_size),
-        density_dtype)
+    infer = cropped_infer(nhwc_infer(model), dataset.overlap_padding, dataset.patch_size)
+    _, dequant = quantized_infer(infer, density_dtype)
     normalizer = None
     if device_feed != "stream" and DeviceSceneCache.supports(dataset):
         cache, feed = DeviceSceneCache(dataset, dataset.enhance, device), "resident"
@@ -195,8 +199,7 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
     pixels = 0
     t0 = time.perf_counter()
 
-    def compute(batch):
-        nonlocal pixels
+    def forward(batch):
         if cache is not None:
             db = cache.complete(batch)
             bx, by = db["x"], db["y"]
@@ -207,11 +210,17 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         else:
             bx = upload(batch["x"], device, transfer_dtype)
             by = upload(batch["y"], device, transfer_dtype)
+        return infer(bx, by)
+
+    def compute(batch):
+        nonlocal pixels
         pixels += int(sum(np.prod(interior[int(i)]) for i, w in
                           zip(batch["item"], batch["weight"]) if w > 0))
-        return Download(infer(bx, by))
+        return Download(quantize(mesh.split_apply(forward, batch), density_dtype))
 
     def process(dl: Download, batch):
+        if not mesh.writes():
+            return
         cmap = dequant(dl.result())
         for ns, (item, w) in enumerate(zip(batch["item"], batch["weight"])):
             if w == 0:

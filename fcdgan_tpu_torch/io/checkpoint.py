@@ -18,6 +18,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..models.segmentor import Segmentor
+from ..parallel import mesh
 
 
 def save_net(path: str, module: torch.nn.Module) -> None:
@@ -44,7 +45,11 @@ class TrainCheckpointer:
     caller's modules and optimizers and returns the meta record, from which
     ``start_epochs`` gives each phase's first epoch. As in the JAX package,
     the data order is not saved: a resumed run re-derives its shuffles from
-    the seed (the documented approximation)."""
+    the seed (the documented approximation). Under ``--n-devices`` rank 0
+    writes, under multi-host every process (``parallel.mesh.writes``), and
+    every rank waits at a barrier until the files are in place, so that no
+    rank of a later ``--resume`` reads a half-written one; every rank
+    restores."""
 
     def __init__(self, directory: str, every: int = 0):
         self.dir = directory
@@ -72,14 +77,16 @@ class TrainCheckpointer:
         """Save after ``epoch`` when it hits the cadence; True if it saved."""
         if not self.due(epoch):
             return False
-        os.makedirs(self.dir, exist_ok=True)
-        for name, (module, opt) in nets.items():
-            _save_atomic({"state_dict": module.state_dict(), "optimizer": opt.state_dict()},
-                         self._net_path(name))
-        tmp = self._meta_path() + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"phase": phase, "epoch": epoch}, f)
-        os.replace(tmp, self._meta_path())
+        if mesh.writes():
+            os.makedirs(self.dir, exist_ok=True)
+            for name, (module, opt) in nets.items():
+                _save_atomic({"state_dict": module.state_dict(),
+                              "optimizer": opt.state_dict()}, self._net_path(name))
+            tmp = self._meta_path() + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"phase": phase, "epoch": epoch}, f)
+            os.replace(tmp, self._meta_path())
+        mesh.barrier()
         return True
 
     def restore(self, nets: Dict[str, Tuple[torch.nn.Module, torch.optim.Optimizer]]

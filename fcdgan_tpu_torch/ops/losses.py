@@ -8,6 +8,12 @@ reference divides by the batch size. ``cmap`` is the (B, H, W, 1) soft
 change density; images are masked by ``1 - cmap`` broadcast over bands, and
 per-sample reconstruction losses are rescaled by ``num_pixel / num_wnc``
 (Loss.py:81-84). Everything runs in float32.
+
+Under a process group (``parallel.mesh``) each rank holds a slice of the
+global batch. The weight sum is then the global one (all-reduced, without
+gradient), and a constant term counts on rank 0 only (``mesh.lead_share``).
+So each rank's loss is its partial sum over the global count, and the sum
+over the ranks is the single-device loss of the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..models.vgg import VGG16Weights, vgg16_features
+from ..parallel import mesh
 from . import ssim as ssim_mod
 
 
@@ -24,6 +31,15 @@ def _weights(x: torch.Tensor, sample_weight: Optional[torch.Tensor]) -> torch.Te
     if sample_weight is None:
         return torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     return sample_weight.to(x.dtype)
+
+
+def weight_norm(w: torch.Tensor) -> torch.Tensor:
+    """``clamp(sum w, min=1)`` over the global batch: the sample weights'
+    sum, all-reduced under a process group."""
+    s = w.sum()
+    if mesh.active():
+        s = mesh.all_reduce_sum(s.detach().clone())[0]
+    return torch.clamp(s, min=1.0)
 
 
 def hard_mask(cmap: torch.Tensor) -> torch.Tensor:
@@ -64,7 +80,7 @@ def perception_loss(target: torch.Tensor, generated: torch.Tensor, cmask: torch.
         with torch.no_grad():
             fx = vgg16_features(x, vgg, feature_layers, dtype)
         fy = vgg16_features(y, vgg, feature_layers, dtype)
-    wn = torch.clamp(w.sum(), min=1.0)
+    wn = weight_norm(w)
     loss = torch.zeros((), dtype=torch.float32, device=target.device)
     for a, b in zip(fx, fy):
         per_sample = ((a - b) ** 2).mean(dim=(1, 2, 3)).reshape(n_rep, -1).mean(dim=0)
@@ -93,7 +109,7 @@ def _ms_ssim_loss(tm, gm, w, wn, msssim_weights, ssim_grad):
     with torch.set_grad_enabled(ssim_grad and torch.is_grad_enabled()):
         ssim_per = ssim_mod.ms_ssim(tm, gm, data_range=1.0, size_average=False,
                                     weights=msssim_weights)
-        return 1.0 - (ssim_per * w).sum() / wn
+        return mesh.lead_share(1.0) - (ssim_per * w).sum() / wn
 
 
 def cnet_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
@@ -110,7 +126,7 @@ def cnet_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.Tensor,
     MS-SSIM value is computed without a graph; with ``compute_ssim=False`` it
     is skipped and reported as 0 (losses.py:215-227)."""
     w = _weights(target, sample_weight)
-    wn = torch.clamp(w.sum(), min=1.0)
+    wn = weight_norm(w)
     per, _, tm, gm = _masked_recon_terms(target, generated, cmap, "l1")
     generator_loss = (per * w).sum() / wn
     l1_loss = (cmap.abs().mean(dim=(1, 2, 3)) * w).sum() / wn
@@ -138,7 +154,7 @@ def cgenerator_loss(target: torch.Tensor, generated: torch.Tensor, cmap: torch.T
     everything (num_wnc == 0) is skipped while the denominator stays the
     weighted batch (Loss.py:116-119, losses.py:231-273)."""
     w = _weights(target, sample_weight)
-    wn = torch.clamp(w.sum(), min=1.0)
+    wn = weight_norm(w)
     per, num_wnc, tm, gm = _masked_recon_terms(target, generated, cmap, "mse")
     keep = (num_wnc > 0).to(per.dtype)
     generator_loss = (per * keep * w).sum() / wn
@@ -158,7 +174,7 @@ def region_loss(cmap: torch.Tensor, region: torch.Tensor, kind: str = "l1",
     ``l1`` (mean |.|) or ``mse`` (mean square), a sample with an empty
     region skipped, the weighted batch mean."""
     w = _weights(cmap, sample_weight)
-    wn = torch.clamp(w.sum(), min=1.0)
+    wn = weight_norm(w)
     num_pixel = cmap.shape[1] * cmap.shape[2]
     num_region = region.sum(dim=(1, 2, 3))
     masked = cmap * region

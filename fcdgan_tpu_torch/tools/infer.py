@@ -1,6 +1,6 @@
 """Stitched inference from a saved SModel state_dict (the serving tool).
 
-Port of the JAX package's ``tools/infer.py`` on one device. Load
+Port of the JAX package's ``tools/infer.py``. Load
 ``SModel*.pkl`` and run the eval-mode Segmentor in one of three modes:
 
   * ``scene`` (:114-310): one raster pair over the overlap-tiled grid
@@ -25,8 +25,13 @@ Port of the JAX package's ``tools/infer.py`` on one device. Load
 it to 32 unless it is set, as the JAX tool does; ``run`` leaves it as
 found). ``--siamese-stats split`` builds the Segmentor with per-branch BN
 statistics: the same densities in eval mode, and the JAX tool's split path
-under ``--bn-mode train`` (:85, 108). ``--n-devices`` above 1 (ROADMAP.md
-A.4) is not ported and raises ``NotImplementedError``.
+under ``--bn-mode train`` (:85, 108). ``--n-devices N`` serves on N ranks,
+one per device (``parallel.mesh.launch``, :172-187, 481-493, 576): the
+fused path is skipped, every mode streams, and each batch that divides the
+ranks is split over them (its densities gathered; ``--bn-mode train``
+normalizes with the global batch statistics), while one that does not is
+computed whole on every rank, as the JAX ``shard_batch`` replicates it.
+Rank 0 writes the artifacts and returns the result.
 
 Run:
   python -m fcdgan_tpu_torch.tools.infer --dir /data --smodel SModel.pkl \\
@@ -104,24 +109,19 @@ class InferConfig:
     device_feed: str = "auto"           # 'auto' fused resident | 'cache' | 'stream'
     transfer_dtype: str = ""            # streamed uploads, e.g. 'bfloat16'
     prefetch_depth: int = 2
-    n_devices: int = 0                  # multi-device serving is not ported
+    n_devices: int = 0                  # ranks, one per device (0: no process group)
     progress: bool = True
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to fcdgan_tpu_torch yet; see "
-                               f"ROADMAP.md, queue A, item {item}")
-
-
 def _check_supported(cfg: InferConfig) -> None:
     from ..eval.inference import transfer_type
     from ..utils.download import check_density_dtype
 
-    if cfg.n_devices > 1:
-        raise _not_ported("multi-device serving (--n-devices)", "A.4")
+    if cfg.n_devices < 0:
+        raise ValueError(f"--n-devices must be 0 (off) or positive, not {cfg.n_devices}")
     if cfg.mode not in ("scene", "whu", "oscd"):
         raise ValueError(f"--mode must be scene, whu or oscd, not {cfg.mode!r}")
     if cfg.siamese_stats not in ("joint", "split"):
@@ -161,9 +161,18 @@ def _progress(cfg: InferConfig, done: int, total: int) -> None:
 
 
 def run(cfg: InferConfig) -> Dict:
-    from ..utils.device import resolve_device
+    """Serve as ``cfg`` asks, on ``n_devices`` ranks when it is set."""
+    from ..parallel import mesh
 
     _check_supported(cfg)
+    if cfg.n_devices:
+        return mesh.launch(_serve, cfg.n_devices, cfg.device, cfg)
+    return _serve(cfg)
+
+
+def _serve(cfg: InferConfig) -> Dict:
+    from ..utils.device import resolve_device
+
     device = resolve_device(cfg.device)
     if not cfg.stats_name:
         cfg = dataclasses.replace(cfg, stats_name="statsMS" if cfg.mode == "oscd" else "stats")
@@ -185,6 +194,7 @@ def run_scene(cfg: InferConfig, device: torch.device) -> Dict:
     from ..data.device_cache import DeviceSceneCache
     from ..eval.inference import stitched_inference, transfer_type
     from ..eval.roc import RocCurve
+    from ..parallel import mesh
 
     outdir = cfg.outdir or cfg.dir
     os.makedirs(outdir, exist_ok=True)
@@ -241,10 +251,11 @@ def run_scene(cfg: InferConfig, device: torch.device) -> Dict:
         done += 1
         _progress(cfg, done, len(dataset))
 
-    # as the JAX tool (:182-230): a scene past the resident budget streams
-    # through BatchLoader (the library function would take the window)
+    # as the JAX tool (:182-230): a scene past the resident budget, and every
+    # scene on ranks, streams through BatchLoader (the library function would
+    # take the window)
     feed = cfg.device_feed
-    if feed == "auto" and not DeviceSceneCache.supports(dataset):
+    if feed == "auto" and (mesh.group_active() or not DeviceSceneCache.supports(dataset)):
         feed = "stream"
     res = stitched_inference(dataset, net, cfg.batch_size, device,
                              device_feed=feed, density_dtype=cfg.density_dtype,
@@ -297,6 +308,7 @@ def run_whu(cfg: InferConfig, device: torch.device) -> Dict:
     from ..eval.changemap import write_changemap
     from ..eval.evaluator import Evaluator
     from ..eval.inference import nhwc_infer, run_overlapped, upload
+    from ..parallel import mesh
     from ..utils.download import Download
 
     if not (cfg.img_dir_x and cfg.img_dir_y and cfg.ref_dir and cfg.label_dir):
@@ -327,18 +339,23 @@ def run_whu(cfg: InferConfig, device: torch.device) -> Dict:
     done = 0
     t0 = time.perf_counter()
 
+    def forward(b):
+        return infer(upload(np.ascontiguousarray(b["x"]), device),
+                     upload(np.ascontiguousarray(b["y"]), device))
+
     def compute(batch):
         nonlocal pixels
         n_real = int(batch["weight"].sum())
         pixels += h * w * n_real
-        bx, by = batch["x"], batch["y"]
-        if cfg.bn_mode == "train":  # the real slices only, as the reference's short tail
-            bx, by = bx[:n_real], by[:n_real]
-        return Download(infer(upload(np.ascontiguousarray(bx), device),
-                              upload(np.ascontiguousarray(by), device)))
+        n = n_real if cfg.bn_mode == "train" else len(batch["weight"])
+        # train mode: the real slices only, as the reference's short tail
+        return Download(mesh.split_apply(forward, {k: batch[k][:n]
+                                                   for k in ("x", "y", "weight")}))
 
     def process(dl: Download, batch):
         nonlocal done
+        if not mesh.writes():
+            return
         cmap = dl.result().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns in range(len(cmap)):
@@ -398,7 +415,8 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
     from ..eval.inference import (cropped_infer, nhwc_infer, quantized_infer,
                                   run_overlapped, transfer_type, upload)
     from ..eval.roc import RocCurve
-    from ..utils.download import Download
+    from ..parallel import mesh
+    from ..utils.download import Download, quantize
 
     scalers = _scene_scalers(cfg.dir, cfg.txt_name, cfg.patch_size, cfg.stats_name)
     dataset = OSCDDataset(cfg.dir, cfg.txt_name, scaler=scalers, patch_size=cfg.patch_size,
@@ -409,7 +427,7 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
     acc = Evaluator(num_class=len(cfg.gt_map))
     roc = RocCurve()
     pixels = 0
-    fused = cfg.device_feed == "auto" and all(
+    fused = cfg.device_feed == "auto" and not mesh.group_active() and all(
         DeviceSceneCache.supports(s.ds) for s in dataset.dslist)
     t0 = time.perf_counter()
     feed = "resident"
@@ -440,9 +458,8 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
         if prev is not None:
             resolve(*prev)
     else:
-        infer, dequant = quantized_infer(
-            cropped_infer(nhwc_infer(net), cfg.overlap_padding, cfg.patch_size),
-            cfg.density_dtype)
+        infer = cropped_infer(nhwc_infer(net), cfg.overlap_padding, cfg.patch_size)
+        _, dequant = quantized_infer(infer, cfg.density_dtype)
         tdt = transfer_type(cfg.transfer_dtype)
         pady, padx = cfg.overlap_padding[1], cfg.overlap_padding[0]
         interior = dataset.interior_sizes()
@@ -457,14 +474,19 @@ def run_oscd(cfg: InferConfig, device: torch.device) -> Dict:
                                  fields=("x", "y", "item", "ref", "region"), shuffle=False)
         done = 0
 
+        def forward(b):
+            return infer(upload(b["x"], device, tdt), upload(b["y"], device, tdt))
+
         def compute(batch):
             nonlocal pixels
             pixels += int(sum(np.prod(interior[int(i)]) for i, w in
                               zip(batch["item"], batch["weight"]) if w > 0))
-            return Download(infer(upload(batch["x"], device, tdt), upload(batch["y"], device, tdt)))
+            return Download(quantize(mesh.split_apply(forward, batch), cfg.density_dtype))
 
         def process(dl: Download, batch):
             nonlocal done
+            if not mesh.writes():
+                return
             cmap = dequant(dl.result())
             cmask = (cmap > cfg.prob_thresh).astype(np.int16)
             for ns in range(len(cmap)):

@@ -19,16 +19,22 @@ over the profiled step, device time by coarse group (the kernels of the
 port, the other convolutions forward and backward, BN/elementwise, pooling
 and upsampling, the optimizer, gather/copy) and by kernel name (top
 ``--top``), and the layout copies (``ops.layout.copies``) the step made
-before its kernels.
+before its kernels. ``--n-devices 1`` runs the step in a world of one
+(``parallel.mesh``: NCCL, every all-reduce of a data-parallel step):
+``allreduce_calls`` counts them; over one rank NCCL copies device to device
+(``dtod_copies``) where a larger world launches its kernels (the "nccl
+all-reduce" group, ``nccl_kernels``).
 
 Run on a machine with a CUDA card, from the repository root:
 
-    python -m fcdgan_tpu_torch.tools.profile_train [--mode wsss|rsss] [--steps 8]
+    python -m fcdgan_tpu_torch.tools.profile_train [--mode wsss|rsss] [--steps 8] \
+        [--n-devices 1]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -39,12 +45,14 @@ import time
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .profile_serve import device_summary
 
 WSSS_SIZE = 200  # px, the side of a WHU Building CD slice
 RSSS_PATCH = 200  # px, the RSSS tile (Demo_RSSS.py:43)
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("nccl all-reduce", ("nccl",)),
     ("conv3x3 kernel", ("conv3x3_wgmma_kernel", "conv3x3_fma_kernel")),
     ("pool_bwd kernel", ("pool_bwd_nhwc_kernel",)),
     ("phase_pool kernel", ("phase_pool_nhwc_kernel",)),
@@ -183,10 +191,8 @@ def _rsss_step(device, batch_size, scene):
     return step, batch_size
 
 
-def main(argv=None):
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..ops import layout
+def main(argv=None) -> dict:
+    """Profile the step that ``argv`` names; print and return its summary."""
     from ..utils.device import resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -197,8 +203,25 @@ def main(argv=None):
                          "default 15) per step")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--n-devices", type=int, default=0, choices=(0, 1),
+                    help="1: the step in a world of one, with its all-reduces")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
+    with contextlib.ExitStack() as stack:
+        if args.n_devices:
+            store = stack.enter_context(tempfile.TemporaryDirectory())
+            stack.enter_context(mesh.world_group(0, 1, "file://" + os.path.join(store, "rdv"),
+                                                 torch.device("cuda", 0)))
+        out = _profile(args, device)
+    print(json.dumps(out))
+    return out
+
+
+def _profile(args, device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import layout
+
     if args.mode == "usss":
         run, bs = _usss_step(device, args.batch_size or 10, args.scene)
     elif args.mode == "rsss":
@@ -223,8 +246,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         step()
         wall = time.perf_counter() - t0
-    print(json.dumps({
+    return {
         "device": torch.cuda.get_device_name(device), "mode": args.mode,
+        "n_devices": args.n_devices, **collectives(prof),
         "batch_size": bs, "scene": None if args.mode == "wsss" else args.scene,
         "slice": WSSS_SIZE if args.mode == "wsss" else None,
         "step_ms_unprofiled": [t * 1e3 for t in times],
@@ -233,7 +257,26 @@ def main(argv=None):
         "layout_copies_per_step": layout.copies - copies,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         **device_summary(prof, wall, groups=GROUPS, top=args.top),
-    }))
+    }
+
+
+def collectives(prof) -> dict:
+    """The all-reduce calls of a profiler window, the NCCL kernels, and the
+    device-to-device copies (NCCL over one rank copies instead of launching
+    a kernel; other copies are the step's own): counts and device ms."""
+    out = {"allreduce_calls": 0, "nccl_kernels": 0, "nccl_kernel_ms": 0.0,
+           "dtod_copies": 0, "dtod_copy_ms": 0.0}
+    for ev in prof.events():
+        name = ev.name.lower()
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            out["allreduce_calls"] += name in ("nccl:all_reduce", "gloo:all_reduce")
+        elif "nccl" in name:
+            out["nccl_kernels"] += 1
+            out["nccl_kernel_ms"] += ev.time_range.elapsed_us() / 1e3
+        elif name.startswith("memcpy dtod"):
+            out["dtod_copies"] += 1
+            out["dtod_copy_ms"] += ev.time_range.elapsed_us() / 1e3
+    return out
 
 
 if __name__ == "__main__":

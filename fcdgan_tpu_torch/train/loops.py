@@ -9,6 +9,10 @@ epoch-summary window (``DeferredEpochEnd``) has no counterpart here.
 ``Progress`` is the '\\r' ETA line (Demo_USSS.py:175-176) and
 ``accuracy_line`` the per-epoch accuracy print. ``nan_checked`` is the
 drivers' ``--debug-nans`` (the JAX drivers' ``jax_debug_nans``).
+
+Under a process group the steps return global metrics, and the drivers
+pass ``update`` the global batch's weight sum, so every rank keeps the same
+averages; ``nan_checked`` raises on every rank together.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..eval.evaluator import Evaluator
+from ..parallel import mesh
 from ..utils.timing import progress_line
 
 
@@ -111,7 +116,10 @@ def nan_checked(step: Callable[[], Dict[str, torch.Tensor]], phase: str, epoch: 
     """``step()`` with its backward under autograd anomaly detection, then
     its losses and the gradients it left in ``nets`` read on the host: the
     first non-finite value raises ``FloatingPointError`` naming the phase and
-    the epoch. Only ``--debug-nans`` pays for these host reads."""
+    the epoch, on every rank of a process group at once (a flag is
+    all-reduced). Only ``--debug-nans`` pays for these host reads. An
+    anomaly inside the backward raises on its own rank; the ranks' launcher
+    (``parallel.mesh.launch``) then stops the others."""
     where = f"phase {phase}, epoch {epoch + 1}"
     try:
         with torch.autograd.set_detect_anomaly(True):
@@ -120,12 +128,16 @@ def nan_checked(step: Callable[[], Dict[str, torch.Tensor]], phase: str, epoch: 
         if "nan" not in str(e).lower():
             raise
         raise FloatingPointError(f"{where}: {e}") from e
+    bad = None
     for k, v in metrics.items():
         if k != "confusion" and not bool(torch.isfinite(v).all()):
-            raise FloatingPointError(f"{where}: {k} is {float(v)}")
+            bad = f"{k} is {float(v)}"
+            break
     for net in nets:
         for name, p in net.named_parameters():
-            if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
-                raise FloatingPointError(
-                    f"{where}: non-finite gradient of {type(net).__name__}.{name}")
+            if bad is None and p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+                bad = f"non-finite gradient of {type(net).__name__}.{name}"
+    device = next(iter(metrics.values())).device
+    if mesh.any_rank(bad is not None, device):
+        raise FloatingPointError(f"{where}: {bad or 'a non-finite value on another rank'}")
     return metrics

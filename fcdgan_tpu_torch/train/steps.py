@@ -32,6 +32,18 @@ pretrains, and every VGG loss stack (``torch.utils.checkpoint``,
 non-reentrant). The recompute runs under ``frozen_running_stats``, so each
 BatchNorm still updates its running statistics once per forward, as the
 pure JAX functions do.
+
+Under a process group (``parallel.mesh``) each rank runs the step on its
+slice of the global batch, and the step's result does not depend on how
+many ranks computed it, as under the JAX mesh: the BatchNorm statistics
+and the loss weight sums are global (``ops/fused_bn``, ``ops/losses``),
+the gradients are summed over the ranks in buckets before each optimizer
+step (``_apply``), and the metrics a step returns are the global ones,
+the per-rank partial sums all-reduced (``_reported``; the confusion
+matrix by ``confusion_update``). No ``DistributedDataParallel``: it would
+average the gradients, broadcast the BN buffers from rank 0 at every
+forward, and its once-per-forward hooks do not fit the steps that run a
+net twice per backward, recompute forwards, or run a frozen net.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from ..eval.evaluator import confusion_update
 from ..models.layers import frozen_running_stats
 from ..models.vgg import VGG16Weights
 from ..ops import losses as L
+from ..parallel import mesh
 from .optim import set_lr
 
 
@@ -84,6 +97,28 @@ def rematerialized(fn: Callable, *modules: torch.nn.Module) -> Callable:
         return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts,
                           preserve_rng_state=False)
     return run
+
+
+def _apply(*updates) -> None:
+    """Each ``(optimizer, lr)``: the gradients of its parameters summed over
+    the ranks (one bucketed all-reduce for all of them), its rate set and
+    its step taken."""
+    mesh.all_reduce_grads([p for opt, _ in updates for group in opt.param_groups
+                           for p in group["params"]])
+    for opt, lr in updates:
+        set_lr(opt, lr)
+    for opt, _ in updates:
+        opt.step()
+
+
+def _reported(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A step's metrics for the global batch: every loss summed over the
+    ranks in one all-reduce (each rank holds its partial sum)."""
+    if not mesh.active():
+        return metrics
+    keys = [k for k in metrics if k != "confusion"]
+    total = mesh.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))[0]
+    return {**metrics, **{k: total[i] for i, k in enumerate(keys)}}
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -140,9 +175,9 @@ class USSSSteps:
 
     @staticmethod
     def _metrics(loss, gen, l1, perc, ssim) -> Dict[str, torch.Tensor]:
-        return {"NetLoss": loss.detach(), "generator_loss": gen.detach(),
-                "l1_loss": l1.detach(), "perception_loss": perc.detach(),
-                "ssim_loss": ssim.detach()}
+        return _reported({"NetLoss": loss.detach(), "generator_loss": gen.detach(),
+                          "l1_loss": l1.detach(), "perception_loss": perc.detach(),
+                          "ssim_loss": ssim.detach()})
 
     # -- phase 1: generator pretrain (Demo_USSS.py:124-189) -----------------
     def g_pretrain(self, x, y, w, lr) -> Dict[str, torch.Tensor]:
@@ -153,8 +188,7 @@ class USSSSteps:
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
-        set_lr(self.opt_g, lr)
-        self.opt_g.step()
+        _apply((self.opt_g, lr))
         return self._metrics(loss, gen, l1, perc, ssim)
 
     # -- phase 2: segmentor init, G forwarded but not stepped (:192-286) ----
@@ -168,8 +202,7 @@ class USSSSteps:
         loss = gen + self.l1w * l1 + self.pw * perc + self.sw * ssim
         self.opt_s.zero_grad(set_to_none=True)
         loss.backward()
-        set_lr(self.opt_s, lr)
-        self.opt_s.step()
+        _apply((self.opt_s, lr))
         m = self._metrics(loss, gen, l1, perc, ssim)
         m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
         return m
@@ -190,10 +223,7 @@ class USSSSteps:
             for p in self.G.parameters():
                 if p.grad is not None:
                     p.grad.mul_(2.0)
-        set_lr(self.opt_g, lr_g)
-        set_lr(self.opt_s, lr_s)
-        self.opt_g.step()
-        self.opt_s.step()
+        _apply((self.opt_g, lr_g), (self.opt_s, lr_s))
         m = self._metrics(net_loss, gen, l1, perc, ssim)
         m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
         return m
@@ -207,8 +237,9 @@ class USSSSteps:
 
 
 def _wmean(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted batch mean of per-sample values (steps.py:84-86)."""
-    return (v * w).sum() / torch.clamp(w.sum(), min=1.0)
+    """Weighted batch mean of per-sample values (steps.py:84-86), over the
+    global weight sum under a process group."""
+    return (v * w).sum() / L.weight_norm(w)
 
 
 class WSSSSteps:
@@ -272,10 +303,9 @@ class WSSSSteps:
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
-        set_lr(self.opt_g, lr)
-        self.opt_g.step()
-        return {"g_loss": loss.detach(), "generator_loss": gen.detach(),
-                "perception_loss": perc.detach(), "ssim_loss": ssim.detach()}
+        _apply((self.opt_g, lr))
+        return _reported({"g_loss": loss.detach(), "generator_loss": gen.detach(),
+                          "perception_loss": perc.detach(), "ssim_loss": ssim.detach()})
 
     # -- adversarial D-then-S step (Demo_WSSS.py:235-343) -------------------
     def adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
@@ -291,11 +321,10 @@ class WSSSSteps:
         keep = 1 - cmask
         c_out = self._d(c_x * keep, c_y * keep)  # D's BN statistics: c, then nc
         nc_out = self._d(nc_x * keep, nc_y * keep)
-        d_loss = 1.0 + _wmean(nc_out, w) - _wmean(c_out, w)
+        d_loss = mesh.lead_share(1.0) + _wmean(nc_out, w) - _wmean(c_out, w)
         self.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
-        set_lr(self.opt_d, lr_d)
-        self.opt_d.step()
+        _apply((self.opt_d, lr_d))
 
         # the frozen G (eval mode, Demo_WSSS.py:206)
         y_fake = None
@@ -320,19 +349,18 @@ class WSSSSteps:
         self.opt_s.zero_grad(set_to_none=True)
         for p, g in zip(params, grads):
             p.grad = g
-        set_lr(self.opt_s, lr_s)
-        self.opt_s.step()
+        _apply((self.opt_s, lr_s))
 
         # in-training eval on the changed pair, full patch (Demo_WSSS.py:337-343)
         with torch.no_grad():
             cmask_t = (cmap[..., 0] > self.prob_thresh).to(torch.float32)
             valid = w.view(-1, 1, 1).expand_as(cmask_t)
             cm = confusion_update(c_ref[..., 0], cmask_t, (0, 1), (0, 1), valid)
-        return {"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
-                "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
-                "nc_loss": nc_loss.detach(), "g_loss": g_loss.detach(),
-                "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
-                "perception_loss": perc.detach(), "confusion": cm}
+        return _reported({"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
+                          "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
+                          "nc_loss": nc_loss.detach(), "g_loss": g_loss.detach(),
+                          "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
+                          "perception_loss": perc.detach(), "confusion": cm})
 
     # -- final inference, train-mode BN (Demo_WSSS.py:387-445) --------------
     @torch.no_grad()
@@ -435,10 +463,9 @@ class RSSSSteps:
         loss = gen + self.pw * perc + self.sw * ssim
         self.opt_g.zero_grad(set_to_none=True)
         loss.backward()
-        set_lr(self.opt_g, lr)
-        self.opt_g.step()
-        return {"g_loss": loss.detach(), "generator_loss": gen.detach(),
-                "perception_loss": perc.detach(), "ssim_loss": ssim.detach()}
+        _apply((self.opt_g, lr))
+        return _reported({"g_loss": loss.detach(), "generator_loss": gen.detach(),
+                          "perception_loss": perc.detach(), "ssim_loss": ssim.detach()})
 
     # -- adversarial D-then-S step with the synthesized pair (:266-397) ------
     def adversarial(self, x, y, ref, region, item, w, lr_s, lr_d
@@ -454,11 +481,10 @@ class RSSSSteps:
         y_unc = y * (1 - region) + x * region  # inside regions x replaces y
         c_out = self._d(x * keep, y * keep)  # D's BN statistics: c, then nc
         nc_out = self._d(x * keep, y_unc * keep)
-        d_loss = 1.0 + _wmean(nc_out, w) - _wmean(c_out, w)
+        d_loss = mesh.lead_share(1.0) + _wmean(nc_out, w) - _wmean(c_out, w)
         self.opt_d.zero_grad(set_to_none=True)
         d_loss.backward()
-        set_lr(self.opt_d, lr_d)
-        self.opt_d.step()
+        _apply((self.opt_d, lr_d))
 
         with torch.no_grad():  # the frozen G, eval mode (Demo_RSSS.py:240)
             y_fake = _nhwc(self.G(_nchw(x)))
@@ -477,14 +503,14 @@ class RSSSSteps:
         self.opt_s.zero_grad(set_to_none=True)
         for p, g in zip(params, grads):
             p.grad = g
-        set_lr(self.opt_s, lr_s)
-        self.opt_s.step()
-        return {"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
-                "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
-                "r_loss": r_loss.detach(), "g_loss": g_loss.detach(),
-                "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
-                "perception_loss": perc.detach(),
-                "confusion": self._confusion(cmap.detach(), ref, item, w, self.interior)}
+        _apply((self.opt_s, lr_s))
+        return _reported({"d_loss": d_loss.detach(), "s_loss": s_loss.detach(),
+                          "s_d_loss": s_d_loss.detach(), "l1_loss": l1_loss.detach(),
+                          "r_loss": r_loss.detach(), "g_loss": g_loss.detach(),
+                          "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
+                          "perception_loss": perc.detach(),
+                          "confusion": self._confusion(cmap.detach(), ref, item, w,
+                                                       self.interior)})
 
     # -- inference and the per-epoch test evaluation (:399-504) --------------
     @torch.no_grad()

@@ -35,6 +35,7 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fcdgan_tpu'))\n"
         "print(len(mods)); assert not bad, bad\n"
+        "assert 'fcdgan_tpu_torch.parallel.mesh' in mods\n"
         "import fcdgan_tpu_torch.native as n\n"
         "assert n._lib is None and n._error is None  # nothing built or loaded\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -103,47 +104,63 @@ def test_run_without_cpu_request_raises_without_gpu(monkeypatch, tmp_path):
     (dict(bn_mode="train", siamese_stats="split"), "A.3"),
     (dict(device_feed="stream", density_dtype="uint8", n_devices=2), "A.4")])
 def test_unported_options_raise(kw, item, tmp_path):
-    """The serving options of ROADMAP.md queue A, in every mode: multi-device
-    serving (A.4) still raises, naming its item; ``--siamese-stats split``
-    (A.3) runs on the CPU, in eval mode with the densities of the joint
-    Segmentor within f32 rounding (1e-5)."""
+    """The serving options of ROADMAP.md queue A, in every mode.
+    ``--siamese-stats split`` (A.3) runs on the CPU, in eval mode with the
+    densities of the joint Segmentor within f32 rounding (1e-5).
+    ``--n-devices`` (A.4) raises past the GPUs there are, and on two gloo
+    ranks on the CPU gives the densities of one process (oscd mode and the
+    quantized stream of the scene mode: within f32 rounding and one uint8
+    step)."""
     import numpy as np
     import torch
 
     from fcdgan_tpu_torch.data.raster import open_raster, read_image
-    from fcdgan_tpu_torch.data.synthetic import make_usss_scene, make_whu_dataset
+    from fcdgan_tpu_torch.data.synthetic import (make_oscd_dataset, make_usss_scene,
+                                                 make_whu_dataset)
     from fcdgan_tpu_torch.io.checkpoint import save_net
     from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.tools.infer import InferConfig, run
 
-    if item == "A.4":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A, item {item}"):
-            run(InferConfig(dir=str(tmp_path), smodel="SModel.pkl", device="cpu", **kw))
+    if kw.get("n_devices") == 4:
+        with pytest.raises(ValueError, match=f"need 4 devices, have {torch.cuda.device_count()}"):
+            run(InferConfig(dir=str(tmp_path), smodel="SModel.pkl", device="cuda", **kw))
         return
     torch.manual_seed(0)
-    save_net(str(tmp_path / "SModel.pkl"), Segmentor(3))
+    nband = 4 if kw.get("mode") == "oscd" else 3
+    save_net(str(tmp_path / "SModel.pkl"), Segmentor(nband))
     common = dict(smodel=str(tmp_path / "SModel.pkl"), device="cpu", compute_dtype="float32",
                   patch_size=(32, 32), overlap_padding=(4, 4), batch_size=2, progress=False)
     if kw.get("mode") == "whu":
         make_whu_dataset(str(tmp_path), n_changed=3, n_unchanged=1, size=32, seed=1)
         common.update(img_dir_x=str(tmp_path / "before"), img_dir_y=str(tmp_path / "after"),
                       ref_dir=str(tmp_path / "Label"), label_dir=str(tmp_path))
+    elif kw.get("mode") == "oscd":
+        make_oscd_dataset(str(tmp_path), xsize=48, ysize=48, rects=((5, 6, 10, 8),), seed=1)
+        common.update(dir=str(tmp_path))
     else:
         make_usss_scene(str(tmp_path), 40, 40, 3, seed=1)
         common.update(dir=str(tmp_path), ref_name="ref.tif")
+    runs = ({"joint": dict(siamese_stats="joint"), "split": dict(siamese_stats="split")}
+            if item == "A.3" else {"one": dict(n_devices=0), "two": dict(n_devices=2)})
     dens = {}
-    for mode in ("joint", "split"):
-        out = run(InferConfig(**{**common, **kw, "siamese_stats": mode},
-                              outdir=str(tmp_path / mode), ext=f"_{mode}"))
+    for tag, over in runs.items():
+        out = run(InferConfig(**{**common, **kw, **over}, outdir=str(tmp_path / tag),
+                              ext=f"_{tag}"))
         if kw.get("mode") == "whu":
-            dens[mode] = np.stack([read_image(os.path.join(out["density_dir"], n))
-                                   for n in sorted(os.listdir(out["density_dir"]))])
+            dens[tag] = np.stack([read_image(os.path.join(out["density_dir"], n))
+                                  for n in sorted(os.listdir(out["density_dir"]))])
+        elif kw.get("mode") == "oscd":
+            dens[tag] = np.stack([open_raster(os.path.join(
+                str(tmp_path), scene, "ImagePair", out["density_name"])).read_block()
+                for scene in out["scenes"]])
         else:
-            dens[mode] = open_raster(out["density_path"]).read_block()
+            dens[tag] = open_raster(out["density_path"]).read_block()
         assert np.isfinite(out["oa"])
-    assert dens["split"].shape == dens["joint"].shape and dens["split"].size
-    tol = 1.0 if kw.get("mode") == "whu" else 1e-5  # whu: uint8 images, one grey level
-    np.testing.assert_allclose(dens["split"].astype(np.float64), dens["joint"], atol=tol)
+    first, second = dens.values()
+    assert second.shape == first.shape and second.size
+    tol = (1.0 if kw.get("mode") == "whu"  # whu: uint8 images, one grey level
+           else 1 / 255 + 1e-6 if kw.get("density_dtype") == "uint8" else 1e-5)
+    np.testing.assert_allclose(second.astype(np.float64), first, atol=tol)
 
 
 def test_scene_past_the_cache_budget_raises(monkeypatch, tmp_path):

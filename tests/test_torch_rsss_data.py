@@ -271,24 +271,27 @@ def _run_option(tmp_path, monkeypatch, *flags):
 
 @pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
-                                  ["--tail", "pad"], ["--random-eraser", "true"], ["--n-devices", "2"],
+                                  ["--tail", "pad"], ["--random-eraser", "true"], ["--n-devices", "1"],
                                   ["--checkpoint-every", "1"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"], ["--num-processes", "2"]])
 def test_unported_options_raise(flag, tmp_path, monkeypatch):
-    """The options the RSSS driver once left out: multi-device and
-    multi-host training (ROADMAP.md A.4) still raise; each other one runs
-    through the driver on the CPU and writes its artifacts
-    (``_run_option``). With ``--tail pad`` the adversarial steps see the
-    padded tail and the train-mode test evaluation trims it; the eraser
-    leaves the resident tiles for ``BatchLoader``."""
+    """The options the RSSS driver once left out each run through the driver
+    on the CPU and write their artifacts (``_run_option``). With ``--tail
+    pad`` the adversarial steps see the padded tail and the train-mode test
+    evaluation trims it; the eraser leaves the resident tiles for
+    ``BatchLoader``. ``--n-devices 1`` runs every data-parallel path of the
+    driver in a world of one gloo rank here (padded tails, the train-mode
+    test evaluation keeping its padded tail, the all-reduces, the
+    inference's gathers); a multi-host world without its coordinator and
+    id raises."""
     import json
     import shutil
 
     from fcdgan_tpu_torch.demos import demo_rsss
 
-    if flag[0] in ("--n-devices", "--num-processes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if flag[0] == "--num-processes":
+        with pytest.raises(ValueError, match="--coordinator-address and --process-id"):
             demo_rsss.main(["--img-dir", str(tmp_path), "--device", "cpu", *flag])
         return
     resume = tmp_path / "model_o" / "resume.ckpt"
@@ -300,8 +303,9 @@ def test_unported_options_raise(flag, tmp_path, monkeypatch):
     out, sizes, erasers = _run_option(tmp_path, monkeypatch, *flag)
     assert out["feed"] == ("host" if flag[0] == "--random-eraser" else "resident")
     assert (erasers[0] is not None) == (flag[0] == "--random-eraser")
-    want = {"adversarial": [3, 3, 3] if flag[0] == "--tail" else [3, 3, 2],
-            "eval_confusion_train": [3, 1]}
+    padded = flag[0] in ("--tail", "--n-devices")
+    want = {"adversarial": [3, 3, 3] if padded else [3, 3, 2],
+            "eval_confusion_train": [3, 3] if flag[0] == "--n-devices" else [3, 1]}
     assert sizes == ({k: [] for k in want} if flag[0] == "--resume" else want)
     assert out["dstate"].siamese_stats == out["sstate"].siamese_stats == (
         "split" if flag[0] == "--siamese-stats" else "joint")

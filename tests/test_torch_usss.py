@@ -167,6 +167,7 @@ def _step(jx, phase, batch, eps=0.0, seed=0):
 @pytest.mark.parametrize("phase", ["g_pretrain", "s_init", "joint"])
 def test_step_matches_jax(phase, jx, batch):
     m, nets, grads = _step(jx, phase, batch)
+    jx.setdefault("own", {})[phase] = grads
     want_m, want_stats, want_grads = jx["out"][phase]
 
     for k in METRICS:
@@ -210,10 +211,66 @@ def test_step_matches_jax(phase, jx, batch):
             if np.allclose(got, want, rtol=2e-3, atol=2e-5):
                 continue
             if witness is None:
-                witness = [_step(jx, phase, batch, WITNESS_EPS, seed)[2] for seed in (0, 1)]
+                witness = _witness(jx, phase, batch)
             self_gap = max(np.linalg.norm(got - w[net_name][name]) for w in witness)
             gap = np.linalg.norm(got - want)
             assert gap <= 2 * self_gap, (net_name, name, gap, self_gap)
+
+
+def _witness(jx, phase, batch):
+    """The port's gradients of ``phase`` on the batch perturbed by about one
+    float32 rounding, two seeds; computed once per ``jx``."""
+    cache = jx.setdefault("witness", {})
+    if phase not in cache:
+        cache[phase] = [_step(jx, phase, batch, WITNESS_EPS, seed)[2] for seed in (0, 1)]
+    return cache[phase]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("jx", [(3,)], indirect=True, ids=["relu1_2"])
+def test_joint_step_on_two_ranks_matches_jax(jx, batch, tmp_path):
+    """The joint step on two gloo ranks (``parallel.mesh``), one sample each,
+    against the JAX step on the whole batch, which divides the ranks: the
+    bounds of ``test_step_matches_jax`` on the global metrics, the BN
+    running statistics and the gradients summed over the ranks, and both
+    ranks' states bit-equal."""
+    import torch_parallel_workers as workers
+    from torch_ranks import run_ranks
+
+    state = {n: {k: np.asarray(v) for k, v in from_jax_variables(jx[n], kind).items()}
+             for n, kind in (("g", "generator"), ("s", "segmentor"))}
+    b = {"x": batch["x"], "y": batch["y"], "ref": batch["ref"],
+         "item": batch["item"].astype(np.int64), "weight": batch["w"]}
+    ranks = run_ranks(workers.usss_step,
+                      ("joint", state, jx["taps"], b, INTERIOR, PAD, MSW), tmp_path)
+    for net_name, sd in ranks[0]["state"].items():
+        for k, v in sd.items():
+            np.testing.assert_array_equal(ranks[1]["state"][net_name][k], v, err_msg=k)
+    got = ranks[0]
+    want_m, want_stats, want_grads = jx["out"]["joint"]
+    for k in METRICS:
+        np.testing.assert_allclose(float(got["metrics"][k]), float(want_m[k]), rtol=1e-4,
+                                   err_msg=k)
+    cm, want_cm = got["metrics"]["confusion"], np.asarray(want_m["confusion"])
+    assert cm.sum() == want_cm.sum() == 2 * (HW - 8) ** 2
+    np.testing.assert_allclose(cm, want_cm, atol=0.005 * cm.sum())
+    for net_name, bs in want_stats.items():
+        want_sd = variables_to_torch(jx[net_name]["params"], bs, kind=_kind(net_name))
+        for k, v in want_sd.items():
+            if k.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(got["state"][net_name][k], v, atol=1e-5, err_msg=k)
+    own = None
+    for net_name, grads in want_grads.items():
+        want_sd = variables_to_torch(grads, jx[net_name]["batch_stats"], kind=_kind(net_name))
+        for name, g in got["grads"][net_name].items():
+            want = want_sd[name]
+            if np.allclose(g, want, rtol=2e-3, atol=2e-5):
+                continue
+            if own is None:
+                own = jx.get("own", {}).get("joint") or _step(jx, "joint", batch)[2]
+            self_gap = max(np.linalg.norm(own[net_name][name] - w[net_name][name])
+                           for w in _witness(jx, "joint", batch))
+            assert np.linalg.norm(g - want) <= 2 * self_gap, (net_name, name)
 
 
 def _kind(net_name):
@@ -304,20 +361,17 @@ def test_demo_usss_end_to_end_on_cpu(tmp_path):
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"]])
 def test_unported_options_raise(flag, tmp_path):
-    """The options the USSS driver once left out: multi-device training
-    (ROADMAP.md A.4) still raises; each other one runs through the driver on
-    the CPU (a 48 px scene, 4 tiles in batches of 3, one joint epoch) and
-    writes its artifacts."""
+    """The options the USSS driver once left out each run through the driver
+    on the CPU (a 48 px scene, 4 tiles in batches of 3, one joint epoch) and
+    write their artifacts. ``--n-devices 2`` runs two gloo ranks on batches
+    of 2, one tile each, and gives the densities and losses of ``--tail
+    pad`` on one process within f32 reduction order (1e-5, 1e-4 relative)."""
     import json
 
     from fcdgan_tpu_torch.data.raster import open_raster
     from fcdgan_tpu_torch.data.synthetic import make_usss_scene
     from fcdgan_tpu_torch.demos import demo_usss
 
-    if flag[0] == "--n-devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            demo_usss.main(["--dir", str(tmp_path), "--device", "cpu", *flag])
-        return
     make_usss_scene(str(tmp_path), 48, 48, 3, rects=((10, 12, 14, 12),), seed=2)
     resume = tmp_path / "resume_o.ckpt"
     if flag[0] == "--resume":  # a record of a finished joint phase: every epoch is skipped
@@ -325,12 +379,13 @@ def test_unported_options_raise(flag, tmp_path):
         (resume / "meta.json").write_text(json.dumps({"phase": "joint", "epoch": 0}))
     if flag[0] == "--profile-dir":
         flag = [flag[0], str(tmp_path / flag[1])]
-    out = demo_usss.main([
-        "--dir", str(tmp_path), "--device", "cpu", "--patch-size", "32,32",
-        "--overlap-padding", "4,4", "--msssim-weights", "0.5,0.5", "--batch-size", "3",
-        "--init-num-epochs-g", "0", "--init-num-epochs-s", "0", "--num-epochs", "1",
-        "--log-tensorboard", "false", "--progress", "false", "--save-checkpoints", "false",
-        "--ext", "_o", *flag])
+    argv = ["--dir", str(tmp_path), "--device", "cpu", "--patch-size", "32,32",
+            "--overlap-padding", "4,4", "--msssim-weights", "0.5,0.5", "--batch-size", "3",
+            "--init-num-epochs-g", "0", "--init-num-epochs-s", "0", "--num-epochs", "1",
+            "--log-tensorboard", "false", "--progress", "false", "--save-checkpoints", "false"]
+    if flag[0] == "--n-devices":  # batches of 2 that the two ranks halve
+        flag = [*flag, "--batch-size", "2"]
+    out = demo_usss.main([*argv, "--ext", "_o", *flag])
     density = open_raster(out["density_path"]).read_block()[..., 0]
     assert density.shape == (48, 48) and np.isfinite(density).all()
     assert os.path.isfile(out["color_path"]) and os.path.isfile(out["para_path"])
@@ -347,3 +402,12 @@ def test_unported_options_raise(flag, tmp_path):
         np.testing.assert_array_equal(density * 255, np.round(density * 255))
     if flag[0] == "--profile-dir":
         assert any(f.endswith(".pt.trace.json") for f in os.listdir(flag[1]))
+    if flag[0] == "--n-devices":
+        one = demo_usss.main([*argv, "--ext", "_one", "--tail", "pad", "--batch-size", "2"])
+        np.testing.assert_allclose(
+            density, open_raster(one["density_path"]).read_block()[..., 0], atol=1e-5)
+        for k, v in one["epoch_metrics"]["joint"][0].items():
+            np.testing.assert_allclose(out["epoch_metrics"]["joint"][0][k], v, rtol=1e-4,
+                                       err_msg=k)
+        np.testing.assert_array_equal(out["evaluator"].confusion_matrix,
+                                      one["evaluator"].confusion_matrix)

@@ -529,23 +529,19 @@ def _run_option(tmp_path, monkeypatch, *flags):
 @pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("flag", [["--siamese-stats", "split"], ["--remat", "true"],
                                   ["--tail", "pad"], ["--random-assign", "true"],
-                                  ["--random-eraser", "true"], ["--n-devices", "2"],
+                                  ["--random-eraser", "true"], ["--n-devices", "1"],
                                   ["--checkpoint-every", "1"], ["--resume", "true"],
                                   ["--density-dtype", "uint8"], ["--profile-dir", "p"],
                                   ["--debug-nans", "true"]])
 def test_unported_options_raise(flag, tmp_path, monkeypatch):
-    """The options the WSSS driver once left out: multi-device training
-    (ROADMAP.md A.4) still raises; each other one runs through the driver on
-    the CPU and writes its artifacts (``_run_option``). The eraser and a
-    random pairing leave the resident slices for the Python loaders."""
+    """The options the WSSS driver once left out each run through the driver
+    on the CPU and write their artifacts (``_run_option``). The eraser and a
+    random pairing leave the resident slices for the Python loaders.
+    ``--n-devices 1`` runs every data-parallel path of the driver in a world
+    of one gloo rank here: the padded tail (the batch of 3 and its padded
+    tail of one), the all-reduces, the train-mode inference's gather (two
+    ranks: ``test_torch_parallel_steps.py`` and the USSS driver)."""
     import json
-
-    from fcdgan_tpu_torch.demos import demo_wsss
-
-    if flag[0] == "--n-devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            demo_wsss.main(["--label-dir", str(tmp_path), "--device", "cpu", *flag])
-        return
     resume = tmp_path / "Detection_WSS_o" / "resume.ckpt"
     if flag[0] == "--resume":  # a record of a finished adversarial phase
         resume.mkdir(parents=True)
@@ -555,7 +551,8 @@ def test_unported_options_raise(flag, tmp_path, monkeypatch):
     out, sizes, erasers = _run_option(tmp_path, monkeypatch, *flag)
     host = flag[0] in ("--random-assign", "--random-eraser")
     assert out["feed"] == ("host" if host else "resident")
-    assert sizes == ([] if flag[0] == "--resume" else [3, 3] if flag[0] == "--tail" else [3, 1])
+    padded = flag[0] in ("--tail", "--n-devices")
+    assert sizes == ([] if flag[0] == "--resume" else [3, 3] if padded else [3, 1])
     assert (erasers[0] is not None) == (flag[0] == "--random-eraser")
     assert out["dstate"].siamese_stats == out["sstate"].siamese_stats == (
         "split" if flag[0] == "--siamese-stats" else "joint")
