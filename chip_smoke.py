@@ -181,6 +181,24 @@ count derived for it:
            1e-4), confusion equal, parameters as in the CPU tests; both
            ranks' states bit-equal; the CPU tests' tighter measures reported
 
+The benchmark entry and the optimizer layouts:
+  bench    every mode of ``fcdgan_tpu_torch.tools.bench`` once at the JAX
+           bench's defaults, in this process, its JSON lines printed: the
+           default mode, --driver, --inference (float32 and uint8),
+           --pretrain, --wsss, --rsss, --wsss-driver, --rsss-driver,
+           --batch-sweep and --scaling (n = 1 on the card, the JAX error row
+           past the card count): each line's metric, unit and positive value,
+           the 36 tiles of the USSS scene, 64 collective calls a scaling
+           step; each kernel's launches in the default mode and the three
+           driver modes equal to the count derived for the steps they ran,
+           every bf16 conv3x3 on wgmma; the six kernels in every training
+           mode, conv3x3 and phase_pool alone in --inference; seconds a mode
+  opt_layouts  FCDGAN_OPT=flat and grouped: one USSS joint step and one
+           WSSS adversarial step each (finite metrics, every stepped net
+           moved), and each layout's update from the leaf step's gradients
+           and initial parameters against the leaf step's parameters (rtol
+           1e-6, atol 1e-7)
+
 Then one JSON line of kernel records (conv3x3's sums one serving chunk;
 the JSON summary file adds its ms per training step), and as the last line
 {"ok": true, "device": {...}}. f32 comparisons run with TF32 off (cuDNN and
@@ -3141,6 +3159,180 @@ def serve_dp_phase(torch, work, smodel, fused):
     return launches
 
 
+BENCH_TILES = 36  # tiles of the 1024² USSS scene at patch 220, padding 10 (PERF.md §4)
+
+
+def _bench_line(line, metric, unit, in_run_ab=False):
+    """A bench line's metric, unit, positive finite value and vs_baseline
+    (-1.0, or a positive in-run A/B)."""
+    return bool(line["metric"] == metric and line["unit"] == unit
+                and math.isfinite(line["value"]) and line["value"] > 0
+                and (line["vs_baseline"] > 0 if in_run_ab else line["vs_baseline"] == -1.0))
+
+
+def bench_phase(torch):
+    """Every mode of ``fcdgan_tpu_torch.tools.bench`` once at the JAX bench's
+    defaults, in this process (the bench prints its JSON lines): each line's
+    metric, unit and value; the 36 tiles of the USSS scene; each kernel's
+    launches in the default mode and the three driver modes equal to the
+    count derived for the steps they ran (one warm epoch, the timed ones, and
+    the step-only window of the adversarial modes), every bf16 conv3x3 on
+    wgmma; the six kernels launched in every training mode, conv3x3 and
+    phase_pool alone in --inference; --scaling at n = 1 on the card (64
+    collective calls a step) and the JAX error row past it."""
+    from fcdgan_tpu_torch.tools import bench
+
+    counters = kernel_counters()
+    dev = torch.device("cuda", 0)
+    _, usss = derived_launches(torch, BENCH_TILES)
+    _, wsss = derived_wsss_launches(torch)
+    _, rsss = derived_rsss_launches(torch, 2 * BENCH_TILES, 0)
+    runs, checks, launches = {}, {}, {}
+
+    def run(name, fn, *args, **kw):
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        runs[name] = fn(*args, **kw)
+        launches[name] = launch_counts(counters)
+        runs[name + "_seconds"] = time.perf_counter() - t0
+        return runs[name]
+
+    def derived(name, per_step, kind, n_steps):
+        got, variants = launches[name]
+        want = {k: per_step[k].get(kind, 0) * n_steps for k in counters}
+        checks[name + "_launches"] = got == want and all_wgmma(got, variants)
+        return {"launches": got, "derived": want, "steps": n_steps}
+
+    torch.cuda.empty_cache()
+    out = {}
+    line = run("default", bench.main_default, dev)
+    checks["default"] = (_bench_line(line, "usss_driver_joint_epochs_per_s", "epochs/s")
+                         and line["step_mpx_per_s"] > 0
+                         and line["tiles_per_epoch"] == BENCH_TILES)
+    # 3 warm + 20 timed steps, then the driver: one warm epoch and 3 timed
+    out["default"] = derived("default", usss, "joint", 23 + 4 * line["batches_per_epoch"])
+    line = run("driver", bench.bench_driver, dev)
+    checks["driver"] = (_bench_line(line, "usss_driver_joint_epochs_per_s", "epochs/s")
+                        and line["tiles_per_epoch"] == BENCH_TILES
+                        and line["batches_per_epoch"] == 4 and line["feed"] == "scene_cache")
+    out["driver"] = derived("driver", usss, "joint", 4 * line["batches_per_epoch"])
+    for dd in ("float32", "uint8"):
+        line = run(f"inference_{dd}", bench.bench_inference, dev, dd)
+        got, variants = launches[f"inference_{dd}"]
+        checks[f"inference_{dd}"] = (
+            _bench_line(line, f"usss_infer_throughput_{dd}", "Mpx/s", in_run_ab=True)
+            and got["conv3x3"] > 0 and got["phase_pool"] > 0 and all_wgmma(got, variants)
+            and not any(got[k] for k in ("pool_bwd", "fused_ssim", "channel_sums",
+                                         "channel_sums_pair")))
+    line = run("pretrain", bench.bench_pretrain, dev)
+    checks["pretrain"] = _bench_line(line, "usss_pretrain_throughput", "Mpx/s", True)
+    for mode, fn in (("wsss", bench.bench_wsss), ("rsss", bench.bench_rsss)):
+        checks[mode] = _bench_line(run(mode, fn, dev), f"{mode}_adversarial_throughput",
+                                   "Mpx/s")
+    line = run("wsss_driver", bench.bench_wsss_driver, dev)
+    checks["wsss_driver"] = (_bench_line(line, "wsss_driver_adversarial_epochs_per_s",
+                                         "epochs/s")
+                             and line["pairs_per_epoch"] == WSSS_SLICES[0]
+                             and line["feed"] == "slice_cache")
+    out["wsss_driver"] = derived("wsss_driver", wsss, "adversarial",
+                                 4 * line["batches_per_epoch"] + 21)
+    line = run("rsss_driver", bench.bench_rsss_driver, dev)
+    checks["rsss_driver"] = (_bench_line(line, "rsss_driver_adversarial_epochs_per_s",
+                                         "epochs/s")
+                             and line["tiles_per_epoch"] == 2 * BENCH_TILES
+                             and line["feed"] == "tile_cache")
+    out["rsss_driver"] = derived("rsss_driver", rsss, "adversarial",
+                                 4 * line["batches_per_epoch"] + 21)
+    rows = run("batch_sweep", bench.bench_batch_sweep, dev)
+    by_bs = collections.defaultdict(list)
+    for r in rows:
+        by_bs[int(r["metric"].split("_bs")[1].split("_")[0])].append(r)
+    checks["batch_sweep"] = sorted(by_bs) == [10, 20, 40, 80] and all(
+        any(r["value"] > 0 for r in rs) and all(r["value"] > 0 or "error" in r for r in rs)
+        for rs in by_bs.values())
+    rows = run("scaling", bench.bench_scaling, dev, timeout=600)
+    have = torch.cuda.device_count()
+    checks["scaling"] = [r["metric"] for r in rows] == [
+        f"usss_dp_scaling_n{n}" for n in (1, 2, 4, 8)] and all(
+        (_bench_line(r, r["metric"], "ms/step") and r["all_reduce_ops"] == 64
+         and r["global_batch"] == 2 * n) if n <= have
+        else (r["value"] == -1.0 and r["error"] == f"need {n} devices, have {have}")
+        for n, r in zip((1, 2, 4, 8), rows))
+    for name in ("default", "pretrain", "wsss", "rsss", "batch_sweep"):
+        got, variants = launches[name]
+        checks[name + "_all_six"] = all(got.values()) and all_wgmma(got, variants)
+    phase("bench", {"seconds": {k: v for k, v in runs.items() if k.endswith("_seconds")},
+                    "driver_launches": out, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"bench checks failed: {checks}")
+    return {f"bench_{name}": o["launches"] for name, o in out.items()}
+
+
+def opt_layouts_phase(torch):
+    """The flat and grouped optimizer layouts (``FCDGAN_OPT``) on the card:
+    one USSS joint step (batch 10 at 220 px) and one WSSS adversarial step
+    (15 pairs of 200 px) of the bench's bf16 setups in each layout, with
+    finite metrics and every stepped net moved; and each layout's update
+    from the leaf step's own gradients and initial parameters, held against
+    the leaf step's parameters within the CPU tests' bound (rtol 1e-6, atol
+    1e-7): bf16 steps do not repeat bitwise on the card, so the layouts are
+    compared on the same gradients."""
+    from fcdgan_tpu_torch.tools import bench
+    from fcdgan_tpu_torch.train import optim
+
+    dev = torch.device("cuda", 0)
+    kinds = {  # setup, one step, the (optimizer, net, rate) of each stepped net
+        "usss_joint": (lambda: bench.usss_setup(dev),
+                       lambda st, d: bench._joint(st, bench._on(dev, d)),
+                       lambda st: ((st.opt_g, st.G, 1e-4), (st.opt_s, st.S, 1e-4))),
+        "wsss_adversarial": (lambda: bench.wsss_setup(dev),
+                             lambda st, args: st.adversarial(*args),
+                             lambda st: ((st.opt_d, st.D, 1e-5), (st.opt_s, st.S, 1e-3)))}
+    report, checks = {}, {}
+    for kind, (setup, step, stepped) in kinds.items():
+        with environ(FCDGAN_OPT="leaf"):
+            st, data = setup()
+        before = [[p.detach().clone() for p in net.parameters()] for _, net, _ in stepped(st)]
+        step(st, data)
+        after = [[p.detach().clone() for p in net.parameters()] for _, net, _ in stepped(st)]
+        grads = [[None if p.grad is None else p.grad.detach().clone()
+                  for p in net.parameters()] for _, net, _ in stepped(st)]
+        algorithms = ["adam" if isinstance(opt, torch.optim.Adam) else "rmsprop"
+                      for opt, _, _ in stepped(st)]
+        for layout in ("flat", "grouped"):
+            worst, ok = 0.0, True
+            for (_, _, lr), algorithm, p0, p1, g in zip(stepped(st), algorithms, before,
+                                                        after, grads):
+                ps = [torch.nn.Parameter(t.clone()) for t in p0]
+                for p, gi in zip(ps, g):
+                    p.grad = None if gi is None else gi.clone()
+                opt = optim.build(ps, algorithm, layout)
+                optim.set_lr(opt, lr)
+                opt.step()
+                for p, want in zip(ps, p1):
+                    gap = (p.detach() - want).abs()
+                    ok &= bool((gap <= 1e-7 + 1e-6 * want.abs()).all())
+                    worst = max(worst, float(gap.max()))
+            with environ(FCDGAN_OPT=layout):
+                st2, data2 = setup()
+            start = [[p.detach().clone() for p in net.parameters()]
+                     for _, net, _ in stepped(st2)]
+            m = step(st2, data2)
+            finite = all(math.isfinite(float(v)) for k, v in m.items() if k != "confusion")
+            moved = all(any(not torch.equal(p.detach(), q) for p, q in zip(net.parameters(), p0))
+                        for (_, net, _), p0 in zip(stepped(st2), start))
+            is_layout = all(isinstance(opt, optim.LayoutOptimizer) for opt, _, _ in stepped(st2))
+            report[f"{kind}_{layout}"] = {"replay_within_bound": ok, "max_abs_gap": worst,
+                                          "step_finite": finite, "moved": moved}
+            checks[f"{kind}_{layout}"] = ok and finite and moved and is_layout
+            del st2, data2, m
+        del st, data, before, after, grads
+        torch.cuda.empty_cache()
+    phase("opt_layouts", {**report, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"opt_layouts checks failed: {checks}")
+
+
 def record(name, source, replaces, rows, launches, step="usss_joint"):
     """One kernel's line of the JSON summary: the sums over its rows of the
     main path's working type in ``step``, each row times its count per step
@@ -3233,6 +3425,10 @@ def main():
         more["serve_oscd_stream"] = serve_oscd_stream_phase(torch, rdir, rsss, oscd_px_per_s)
         more["rsss_host"] = rsss_host_phase(torch, rdir, rsss)
         more["eraser"] = eraser_phase(wsss_eraser, rsss_eraser_run(torch, rdir, rsss))
+        shutil.rmtree(rdir)
+        torch.cuda.empty_cache()
+        more.update(bench_phase(torch))
+        opt_layouts_phase(torch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -11,8 +11,9 @@ and a color raster per test scene (``{scene}/ImagePair/density{ext}`` and
 ``color{ext}``, the color raster coded {0 TN, 1 FN, 2 FP, 3 TP}) ->
 ``Para.txt`` and ``SModel.pkl`` / ``DModel.pkl`` (``{img_dir}/model{ext}``)
 and ``GModel.pkl`` (``out_g_model_dir``), reference state_dicts. The
-inference runs synchronously; ``--density-dtype uint8|bfloat16`` quantizes
-its downloads.
+inference writes on a writer thread while the next batch's forward runs
+(``eval.inference.run_overlapped``, demo_rsss.py:325-369);
+``--density-dtype uint8|bfloat16`` quantizes its downloads.
 
 The feed is the JAX driver's choice (demo_rsss.py:95-135), named in the
 result's ``feed`` (the train list) and ``test_feed``: ``resident`` (the raw
@@ -62,6 +63,7 @@ from ..data.pipeline import BatchLoader, NativeOSCDBatchLoader, device_put_batch
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap_gdal
 from ..eval.evaluator import Evaluator
+from ..eval.inference import run_overlapped
 from ..io.checkpoint import TrainCheckpointer, model_g_reuse, save_net
 from ..io.records import ScalarWriter, segmentation_summary, write_para_txt
 from ..models.discriminator import Discriminator
@@ -75,7 +77,7 @@ from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
 from ..train.steps import PerceptionConfig, RSSSSteps
 from ..utils.device import resolve_device
-from ..utils.download import dequantize, quantize
+from ..utils.download import Download, dequantize, quantize
 from ..utils.timing import maybe_profile
 from .demo_usss import _DTYPES, _log_accuracy
 
@@ -335,13 +337,17 @@ def _train(cfg: RSSSConfig) -> Dict:
     acc = Evaluator(num_class=len(cfg.gt_map))
     density_name = "{}{}".format(cfg.out_name_density, cfg.ext)
     color_name = "{}{}".format(cfg.out_name_binary, cfg.ext)
-    for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
+
+    def compute(batch):  # the caller's thread: every rank, in order (the gathers)
         db = put(batch, test_cache)  # each rank its slice; gathered before the writes
-        cmap = dequantize(quantize(mesh.gather(steps.infer(db["x"], db["y"])),
-                                   cfg.density_dtype).cpu(), cfg.density_dtype)
-        ref = mesh.gather(db["ref"]).cpu().numpy()
+        d = quantize(mesh.gather(steps.infer(db["x"], db["y"])), cfg.density_dtype)
+        return Download(d), Download(mesh.gather(db["ref"]))
+
+    def process(dls, batch):  # the writer thread (demo_rsss.py:325-369)
         if not mesh.writes():
-            continue
+            return
+        cmap = dequantize(dls[0].result(), cfg.density_dtype)
+        ref = dls[1].result().numpy()
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
             if batch["weight"][ns] == 0:
@@ -356,6 +362,8 @@ def _train(cfg: RSSSConfig) -> Dict:
             y0, y1, x0, x1 = test_dataset.eff_range(item)
             acc.add_batch_map(ref_chw[0, y0:y1, x0:x1].astype(np.int16),
                               cmask_chw[0, y0:y1, x0:x1], cfg.gt_map, cfg.pre_map)
+
+    run_overlapped(prefetch(iter(test_loader), cfg.prefetch_depth), compute, process)
     test_dataset.close_outputs()
     seconds["infer"] = time.perf_counter() - t0
     print(segmentation_summary(acc))

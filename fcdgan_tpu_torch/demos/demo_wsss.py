@@ -23,7 +23,9 @@ slice loaders (``native``: ``NativeWHUPairBatchLoader`` and
 only, as in the JAX package: the resident stacks refuse both, the native
 loaders the eraser, the native pair loader a random pairing. The final
 inference reads the changed slices from the resident stacks, or through
-``BatchLoader``.
+``BatchLoader``, and writes its images on a writer thread while the next
+batch's forward runs (``eval.inference.run_overlapped``,
+demo_wsss.py:307-347).
 
 The training options are the JAX driver's (see ``demo_usss``):
 ``--siamese-stats split`` (here for S and D), ``--remat``, ``--tail pad``,
@@ -70,6 +72,7 @@ from ..data.raster import read_image, write_image
 from ..data.stats import dataset_meanstd
 from ..eval.changemap import write_changemap
 from ..eval.evaluator import Evaluator
+from ..eval.inference import run_overlapped
 from ..io.checkpoint import TrainCheckpointer, model_g_reuse, save_net
 from ..io.records import ScalarWriter, segmentation_summary, write_para_txt
 from ..models.discriminator import Discriminator
@@ -77,12 +80,13 @@ from ..models.generator import Generator
 from ..models.segmentor import Segmentor
 from ..models.vgg import VGG16Weights, load_vgg16_params, select_feature_layers
 from ..parallel import mesh
-from ..parallel.multihost import put_multihost, to_host
+from ..parallel.multihost import put_multihost
 from ..train import schedules
 from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
 from ..train.steps import PerceptionConfig, WSSSSteps
 from ..utils.device import resolve_device
+from ..utils.download import Download
 from ..utils.timing import maybe_profile
 from .demo_usss import _DTYPES, _log_accuracy
 
@@ -308,17 +312,23 @@ def _train(cfg: WSSSConfig) -> Dict:
     # (with --tail pad the duplicates of a padded tail enter S's batch
     # statistics, as in the JAX driver, and are not written; under a process
     # group each rank runs its slice of the batch with the global statistics,
-    # and the densities are gathered before the writes, demo_wsss.py:318-327)
+    # and the densities are gathered before the writes, demo_wsss.py:318-327);
+    # a writer thread writes while the next batch's forward runs
+    # (``run_overlapped``, demo_wsss.py:307-347)
     tail = batch_tail(cfg)
     test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size, tail=tail)
                    if cache is not None
                    else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail=tail))
-    for batch in prefetch(iter(test_loader), cfg.prefetch_depth):
+
+    def compute(batch):  # the caller's thread: every rank, in order (the gather)
         local = put_multihost(batch)
         db = cache.complete_c(local) if cache is not None else _put(local, ("x", "y"), device)
-        cmap = to_host(steps.infer_train_mode(db["x"], db["y"]))[..., 0]
+        return Download(mesh.gather(steps.infer_train_mode(db["x"], db["y"])))
+
+    def process(dl: Download, batch):  # the writer thread (demo_wsss.py:323-345)
         if not mesh.writes():
-            continue
+            return
+        cmap = dl.result().numpy()[..., 0]
         cmask = (cmap > cfg.prob_thresh).astype(np.int16)
         for ns, item in enumerate(batch["item"]):
             if batch["weight"][ns] == 0:
@@ -337,6 +347,8 @@ def _train(cfg: WSSSConfig) -> Dict:
             if change_write.ndim == 3:
                 change_write = change_write.transpose((1, 2, 0))
             write_image(os.path.join(out_dir, name), np.uint8(change_write))
+
+    run_overlapped(prefetch(iter(test_loader), cfg.prefetch_depth), compute, process)
     seconds["infer"] = time.perf_counter() - t0
     print("\rSegmentation, " + segmentation_summary(acc))
     print("\r" + "End of Saving", flush=True)

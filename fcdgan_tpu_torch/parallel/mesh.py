@@ -14,7 +14,9 @@ semantics:
   * ``pad_batch_to_multiple`` (a copy of the JAX one) wrap-pads the global
     host batch with weight-0 duplicates to a multiple of the world, and
     ``shard_batch`` keeps this rank's contiguous slice of it.
-  * Every collective is a SUM ``all_reduce``. ``all_reduce_sum`` serves the
+  * Every collective is a SUM ``all_reduce`` (``collective_calls`` counts
+    them, the counterpart of the JAX count of ``all-reduce`` ops in a
+    step's HLO). ``all_reduce_sum`` serves the
     BatchNorm statistics (``ops/fused_bn``), the global weight sums
     (``ops/losses``), the metrics and the confusion matrix;
     ``all_reduce_grads`` sums the gradients in buckets before each
@@ -47,7 +49,7 @@ from ..data.pipeline import Batch
 # default bucket is 25 MB; the nets here hold a few million parameters)
 BUCKET_BYTES = 64 << 20
 
-_state = {"replicated": 0, "multihost": False}
+_state = {"replicated": 0, "multihost": False, "calls": 0}
 
 
 def group_active() -> bool:
@@ -93,6 +95,16 @@ def replicated() -> Iterator[None]:
         _state["replicated"] -= 1
 
 
+def collective_calls() -> int:
+    """The all-reduce calls this process has made so far."""
+    return _state["calls"]
+
+
+def _all_reduce(t: torch.Tensor) -> None:
+    _state["calls"] += 1
+    dist.all_reduce(t)
+
+
 def lead_share(c: float) -> float:
     """This rank's part of a constant term ``c`` of a loss that is summed over
     the ranks: all of it on rank 0 (and without collectives), none elsewhere."""
@@ -106,10 +118,10 @@ def all_reduce_sum(*tensors: torch.Tensor):
     if not active() or not tensors:
         return tensors
     if len(tensors) == 1 and tensors[0].is_contiguous():
-        dist.all_reduce(tensors[0])
+        _all_reduce(tensors[0])
         return tensors
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    _all_reduce(flat)
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view(t.shape))
@@ -146,7 +158,7 @@ def gather(t: torch.Tensor) -> torch.Tensor:
     b = t.shape[0]
     out = t.new_zeros((world() * b,) + tuple(t.shape[1:]))
     out[rank() * b:(rank() + 1) * b] = t
-    dist.all_reduce(out)
+    _all_reduce(out)
     return out
 
 
@@ -170,7 +182,7 @@ def any_rank(flag: bool, device) -> bool:
     if not active():
         return flag
     t = torch.tensor([1.0 if flag else 0.0], device=device)
-    dist.all_reduce(t)
+    _all_reduce(t)
     return bool(t.item() > 0)
 
 

@@ -6,8 +6,8 @@ Counterpart of the JAX package's ``parallel/multihost.py``. After
 unchanged over ``parallel.mesh``'s collectives. Every process builds the
 identical global host batch (the loaders are seeded, so the order is the
 same everywhere); ``put_multihost`` pads it and keeps this process's
-contiguous ``process_slice``, and ``to_host`` gathers an output to every
-process, so that each process writes its full artifact set.
+contiguous ``process_slice``, and ``mesh.gather`` gathers an output to
+every process, so that each process writes its full artifact set.
 
 The coordinator address is ``host:port`` (a TCP rendezvous, as JAX's) or
 any ``torch.distributed`` init URL (``file:///shared/path``).
@@ -18,8 +18,6 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator, Optional
 
-import numpy as np
-import torch
 import torch.distributed as dist
 
 from . import mesh
@@ -73,10 +71,3 @@ process_slice = mesh.rank_slice
 # driver-side placement: the global host batch padded to the world, this
 # process's slice kept (JAX multihost.py:69-90); the local ranks' too
 put_multihost = mesh.shard_batch
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A batch-sharded device output gathered to every process, as a host
-    array (JAX multihost.py:93-108). Collective: every process calls it in
-    the same order."""
-    return mesh.gather(t).cpu().numpy()

@@ -36,6 +36,8 @@ def test_importing_every_module_loads_no_jax():
         "('jax', 'jaxlib', 'flax', 'fcdgan_tpu'))\n"
         "print(len(mods)); assert not bad, bad\n"
         "assert 'fcdgan_tpu_torch.parallel.mesh' in mods\n"
+        "assert {'fcdgan_tpu_torch.tools.' + t for t in ('bench', 'building_process', "
+        "'oscd_process', 'convert_vgg')} <= set(mods)\n"
         "import fcdgan_tpu_torch.native as n\n"
         "assert n._lib is None and n._error is None  # nothing built or loaded\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -17,6 +17,14 @@ on its slice of the global batch, and the result is the global batch's.
     update then agrees within 1e-3 of itself). RMSprop's first update is
     about ten times the rate times the gradient's sign, so an element whose
     gradient lies within the gap of zero steps either way.
+  * The WSSS step also with ``remat=True`` and per-branch statistics
+    (``siamese_stats="split"`` in S and D), under the same bounds.
+  * The USSS joint step with ``remat=True`` and per-branch statistics
+    (``siamese_stats="split"``), on the same kind of batch (32 px, 3 bands),
+    under the same bounds, except that its gradients' witness is the largest
+    gap over three seeds: under per-branch statistics at these sizes S's
+    first-layer gradients move by up to about 2 % of their norm under one
+    float32 rounding of the batch, and one seed's gap ranges over 4x.
   * Both ranks' parameters and BatchNorm buffers bit-equal.
   * A non-finite metric on one rank makes ``nan_checked`` raise on both.
 """
@@ -49,7 +57,7 @@ def _assert_ranks_equal(ranks):
 
 def _adversarial_batch(mode):
     rng = np.random.default_rng(0)
-    hw, nb = (32, 3) if mode == "wsss" else (40, 4)
+    hw, nb = (32, 3) if mode in ("wsss", "usss") else (40, 4)
     weight = np.array([1, 1, 1, 0], np.float32)  # three samples, a weight-0 duplicate
 
     def pair(change):
@@ -60,6 +68,10 @@ def _adversarial_batch(mode):
         return np.concatenate([x, x[:1]]), np.concatenate([y, y[:1]])
 
     c_x, c_y = pair(True)
+    if mode == "usss":
+        ref = np.ones((4, hw, hw, 1), np.float32)
+        ref[:, 8:20, 10:22] = 2.0
+        return dict(x=c_x, y=c_y, ref=ref, item=np.array([0, 1, 2, 0]), weight=weight), nb
     if mode == "wsss":
         nc_x, nc_y = pair(False)
         c_ref = np.zeros((4, hw, hw, 1), np.float32)
@@ -94,28 +106,36 @@ def _adversarial_case(mode):
     hw = (batch["c_x"] if mode == "wsss" else batch["x"]).shape[1]
     interior = np.array([[hw - 8, hw - 8]] * 3, np.int64)
     torch.manual_seed(0)
-    state = {n: _np_state(net) for n, net in (("g", Generator(nb)), ("s", Segmentor(nb)),
-                                              ("d", Discriminator(nb)))}
+    nets = (("g", Generator(nb)), ("s", Segmentor(nb)))
+    if mode != "usss":
+        nets += (("d", Discriminator(nb)),)
+    state = {n: _np_state(net) for n, net in nets}
     return state, batch, interior
+
+
+# name: (mode, remat, siamese_stats)
+CASES = {"wsss": ("wsss", False, "joint"), "rsss": ("rsss", False, "joint"),
+         "usss_remat_split": ("usss", True, "split")}
 
 
 @pytest.fixture(scope="module")
 def adversarial_ranks(tmp_path_factory):
-    """Both modes' steps on two gloo ranks, in one spawn of the ranks."""
-    cases = {mode: _adversarial_case(mode) for mode in ("wsss", "rsss")}
-    return cases, run_ranks(workers.adversarial_steps,
-                            ({mode: (*case, (4, 4)) for mode, case in cases.items()},),
+    """Every case's step on two gloo ranks, in one spawn of the ranks."""
+    cases = {name: _adversarial_case(mode) for name, (mode, _, _) in CASES.items()}
+    return cases, run_ranks(workers.step_cases,
+                            ({name: (CASES[name][0], *case, (4, 4), *CASES[name][1:])
+                              for name, case in cases.items()},),
                             tmp_path_factory.mktemp("adversarial"))
 
 
 @pytest.mark.usefixtures("one_torch_thread")
-@pytest.mark.parametrize("mode", ["wsss", "rsss"])
+@pytest.mark.parametrize("mode", list(CASES))
 def test_adversarial_step_on_two_ranks_matches_one_process(mode, adversarial_ranks):
     cases, rank_outs = adversarial_ranks
     state, batch, interior = cases[mode]
-    args = (mode, state, batch, interior, (4, 4))
+    args = (CASES[mode][0], state, batch, interior, (4, 4), *CASES[mode][1:])
     ranks = [r[mode] for r in rank_outs]
-    want = workers.adversarial_step(None, *args)
+    want = workers.step_case(None, *args)
     _assert_ranks_equal(ranks)
     got = ranks[0]
     np.testing.assert_array_equal(got["metrics"]["confusion"], want["metrics"]["confusion"])
@@ -125,16 +145,18 @@ def test_adversarial_step_on_two_ranks_matches_one_process(mode, adversarial_ran
 
     def witness(seed):
         if seed not in cache:
-            cache[seed] = workers.adversarial_step(
-                None, mode, state, _scaled(batch, seed), interior, (4, 4))
+            cache[seed] = workers.step_case(
+                None, CASES[mode][0], state, _scaled(batch, seed), interior, (4, 4),
+                *CASES[mode][1:])
         return cache[seed]
 
-    for net in ("g", "s", "d"):
+    seeds = (1, 2, 3) if CASES[mode][2] == "split" else (1,)
+    for net in state:
         assert sorted(got["grads"][net]) == sorted(want["grads"][net])
         largest = max((float(np.abs(v).max()) for v in want["grads"][net].values()), default=0)
         for k, v in want["grads"][net].items():
             _close_or_witnessed(got["grads"][net][k], v, largest,
-                                [lambda: witness(1)["grads"][net][k]],
+                                [lambda sd=sd: witness(sd)["grads"][net][k] for sd in seeds],
                                 (net, "grad", k))
         for k, v in want["state"][net].items():
             p = got["state"][net][k]

@@ -50,21 +50,23 @@ def _vgg():
     return VGG16Weights(load_vgg16_params(None), "cpu")
 
 
-def usss_step(rank, phase, state, taps, batch, interior, pad, msw):
+def usss_step(rank, phase, state, taps, batch, interior, pad, msw, remat=False,
+              siamese_stats="joint"):
     """One ``USSSSteps`` step of ``phase`` on this rank's slice of ``batch``,
-    from the state dicts ``state``: metrics, state and the summed gradients."""
+    from the state dicts ``state``, with the steps' ``remat`` and S's
+    ``siamese_stats``: metrics, state and the summed gradients."""
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.train.optim import adam
     from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
 
-    nets = {"g": Generator(3), "s": Segmentor(3)}
+    nets = {"g": Generator(3), "s": Segmentor(3, siamese_stats=siamese_stats)}
     for n, net in nets.items():
         net.load_state_dict({k: torch.from_numpy(v) for k, v in state[n].items()})
     g, s = nets["g"], nets["s"]
     steps = USSSSteps(g, s, adam(g.parameters()), adam(s.parameters()), _vgg(),
                       PerceptionConfig(taps, True), 0.4, 0.65, 0.0, interior, pad,
-                      msssim_weights=msw)
+                      msssim_weights=msw, remat=remat)
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in mesh.shard_batch(batch).items()}
     t["item"] = t["item"].long()
     if phase == "g_pretrain":
@@ -77,10 +79,12 @@ def usss_step(rank, phase, state, taps, batch, interior, pad, msw):
                 grads=_grads(nets))
 
 
-def adversarial_step(rank, mode, state, batch, interior, pad):
+def adversarial_step(rank, mode, state, batch, interior, pad, remat=False,
+                     siamese_stats="joint"):
     """One WSSS or RSSS adversarial step (``mode``) on this rank's slice of
-    the padded ``batch`` (the whole batch without a group), from ``state``:
-    metrics, state and summed gradients. Rank None runs it in this process."""
+    the padded ``batch`` (the whole batch without a group), from ``state``,
+    with the steps' ``remat`` and the nets' ``siamese_stats``: metrics,
+    state and summed gradients. Rank None runs it in this process."""
     from fcdgan_tpu_torch.models.discriminator import Discriminator
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
@@ -88,7 +92,8 @@ def adversarial_step(rank, mode, state, batch, interior, pad):
     from fcdgan_tpu_torch.train.steps import PerceptionConfig, RSSSSteps, WSSSSteps
 
     nb = (batch["c_x"] if mode == "wsss" else batch["x"]).shape[-1]
-    nets = {"g": Generator(nb), "s": Segmentor(nb), "d": Discriminator(nb)}
+    nets = {"g": Generator(nb), "s": Segmentor(nb, siamese_stats=siamese_stats),
+            "d": Discriminator(nb, siamese_stats=siamese_stats)}
     for n, net in nets.items():
         net.load_state_dict({k: torch.from_numpy(v) for k, v in state[n].items()})
     g, s, d = nets["g"], nets["s"], nets["d"]
@@ -97,22 +102,33 @@ def adversarial_step(rank, mode, state, batch, interior, pad):
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in mesh.shard_batch(batch).items()}
     if mode == "wsss":
         steps = WSSSSteps(g, s, d, *opts, vgg, PerceptionConfig((3,), False), 0.5, 0.0,
-                          0.2, 1.6, 1.0, 1.5, prob_thresh=0.6, msssim_weights=(0.5, 0.5))
+                          0.2, 1.6, 1.0, 1.5, prob_thresh=0.6, msssim_weights=(0.5, 0.5),
+                          remat=remat)
         m = steps.adversarial(t["c_x"], t["c_y"], t["c_ref"], t["nc_x"], t["nc_y"],
                               t["weight"], 1e-4, 5e-5)
     else:
         steps = RSSSSteps(g, s, d, *opts, vgg, PerceptionConfig((3,), True), 0.1, 0.0,
-                          0.5, 0.02, 1.0, 2.0, interior, pad, msssim_weights=(0.5, 0.5))
+                          0.5, 0.02, 1.0, 2.0, interior, pad, msssim_weights=(0.5, 0.5),
+                          remat=remat)
         m = steps.adversarial(t["x"], t["y"], t["ref"], t["region"], t["item"].long(),
                               t["weight"], 1e-4, 5e-5)
     return dict(metrics={k: _np(v) for k, v in m.items()}, state=_state(nets),
                 grads=_grads(nets))
 
 
-def adversarial_steps(rank, cases):
-    """``adversarial_step`` of each mode of ``cases`` ({mode: (state, batch,
-    interior, pad)}), in one world."""
-    return {mode: adversarial_step(rank, mode, *case) for mode, case in cases.items()}
+def step_case(rank, mode, state, batch, interior, pad, remat=False, siamese_stats="joint"):
+    """A USSS joint step (``mode`` usss: 3 bands, per-band perception at
+    relu1_2, 2-scale MS-SSIM) or ``adversarial_step`` of ``mode``."""
+    if mode == "usss":
+        return usss_step(rank, "joint", state, (3,), batch, interior, pad, (0.5, 0.5), remat,
+                         siamese_stats)
+    return adversarial_step(rank, mode, state, batch, interior, pad, remat, siamese_stats)
+
+
+def step_cases(rank, cases):
+    """``step_case`` of each case of ``cases`` ({name: (mode, state, batch,
+    interior, pad, remat, siamese_stats)}), in one world."""
+    return {name: step_case(rank, *case) for name, case in cases.items()}
 
 
 def nan_checked_step(rank):
