@@ -1,0 +1,7 @@
+"""conv3x3's least time over its device time in the profiled scenes, %."""
+
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "serve", ("conv3x3",))

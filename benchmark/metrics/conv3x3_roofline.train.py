@@ -1,0 +1,7 @@
+"""conv3x3's least time over its device time in the profiled steps, %."""
+
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "train", ("conv3x3",))

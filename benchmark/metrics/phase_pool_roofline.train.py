@@ -1,0 +1,7 @@
+"""phase_pool's least time over its device time in the profiled steps, %."""
+
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "train", ("phase_pool",))

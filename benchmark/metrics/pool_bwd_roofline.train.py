@@ -1,0 +1,7 @@
+"""pool_bwd's least time over its device time in the profiled steps, %."""
+
+from benchmark.readers import roofline
+
+
+def read(record):
+    return roofline(record, "train", ("pool_bwd",))
