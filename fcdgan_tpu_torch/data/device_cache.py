@@ -12,7 +12,10 @@ For serving, per chunk of tiles the Segmentor runs, each tile's
 stride-sized interior is cropped and written into a device canvas, and the
 finished raster is quantized to the download type and downloaded once
 (``stitched_density``, or ``stitched_density_start`` / ``_finish`` for a
-caller that overlaps scenes).
+caller that overlaps scenes). Its phases are the recorder's spans
+(``utils.timing``): ``feed.read`` and ``feed.upload`` for each raster (and
+the counter ``feed.upload_bytes``), ``serve.pass`` for the start, and
+``serve.download`` for the finish.
 
 Chunks come from ``serve_chunks``: batch-exact unless ``FCDGAN_SERVE_BS``
 widens them, the last one wrap-padded with the first tiles again. A raster
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from ..utils.download import Download, dequantize, quantize
+from ..utils.timing import count, span
 from .normalize import Normalize
 from .pipeline import Batch, BatchLoader, _norm_stats, _normalize_masked
 
@@ -187,10 +191,13 @@ class DeviceSceneCache:
         nband = dataset.raster_x.nband
 
         def padded(raster):
-            out = np.zeros((hp, wp, raster.nband), held_dtype(raster.dtype))
-            out[pady:pady + raster.ysize, padx:padx + raster.xsize] = \
-                raster.read_block(0, 0, raster.xsize, raster.ysize)
-            return torch.from_numpy(out).to(self.device)
+            with span("feed.read"):
+                out = np.zeros((hp, wp, raster.nband), held_dtype(raster.dtype))
+                out[pady:pady + raster.ysize, padx:padx + raster.xsize] = \
+                    raster.read_block(0, 0, raster.xsize, raster.ysize)
+            count("feed.upload_bytes", out.nbytes)
+            with span("feed.upload"):
+                return torch.from_numpy(out).to(self.device)
 
         self.px = padded(dataset.raster_x)
         self.py = padded(dataset.raster_y)
@@ -269,23 +276,25 @@ class DeviceSceneCache:
         padx, pady = self.grid.overlap_padding
         sy, sx = ph - 2 * pady, pw - 2 * padx
         hp, wp = self.grid.padded_shape()
-        canvas = torch.zeros((hp - 2 * pady, wp - 2 * padx), device=self.device)
-        chunks = serve_chunks(self.n_tiles, batch_size)
-        ids_dev = torch.from_numpy(chunks).to(self.device)
-        for i, ids in enumerate(chunks):
-            x, y = self.tiles(ids_dev[i])
-            core = model(x, y)[:, 0, pady:pady + sy, padx:padx + sx]
-            for j, item in enumerate(ids):
-                r0, c0 = self.origins[item]
-                canvas[r0:r0 + sy, c0:c0 + sx] = core[j]
-        hs, ws = self.scene_hw
-        return Download(quantize(canvas[:hs, :ws], density_dtype))
+        with span("serve.pass"):
+            canvas = torch.zeros((hp - 2 * pady, wp - 2 * padx), device=self.device)
+            chunks = serve_chunks(self.n_tiles, batch_size)
+            ids_dev = torch.from_numpy(chunks).to(self.device)
+            for i, ids in enumerate(chunks):
+                x, y = self.tiles(ids_dev[i])
+                core = model(x, y)[:, 0, pady:pady + sy, padx:padx + sx]
+                for j, item in enumerate(ids):
+                    r0, c0 = self.origins[item]
+                    canvas[r0:r0 + sy, c0:c0 + sx] = core[j]
+            hs, ws = self.scene_hw
+            return Download(quantize(canvas[:hs, :ws], density_dtype))
 
     @staticmethod
     def stitched_density_finish(handle: Download, density_dtype: str = "float32") -> np.ndarray:
         """Wait for a ``stitched_density_start`` download: the float32
         (ysize, xsize) host density (uint8 dequantized by / 255)."""
-        return dequantize(handle.result(), density_dtype)
+        with span("serve.download"):
+            return dequantize(handle.result(), density_dtype)
 
     def stitched_density(self, model, batch_size: int = 10,
                          density_dtype: str = "float32") -> np.ndarray:

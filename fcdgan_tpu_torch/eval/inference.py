@@ -44,6 +44,7 @@ from ..data.pipeline import (BatchLoader, DeviceNormalizer, NativeSceneBatchLoad
                              device_put_batch, prefetch, upload)
 from ..parallel import mesh
 from ..utils.download import Download, check_density_dtype, dequantize, quantize
+from ..utils.timing import span
 
 
 def nhwc_infer(model) -> Callable:
@@ -148,18 +149,32 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
     ``device``, written through the dataset's density raster (JAX
     inference.py:163-307).
 
-    Returns {"density", "pixels", "seconds", "px_per_s", "fused", "feed"}:
+    Returns {"density", "pixels", "fused", "feed", "seconds", "px_per_s"}:
     ``density`` is the whole float32 raster on the fused paths and None on
     the others. ``transfer_dtype`` is the upload type of streamed host
     tiles (the JAX tool's ``--transfer-dtype``, inference.py:263-268); the
     resident feeds upload the raw scene once. On the per-batch paths
     ``on_tile(item, d)``, when given,
     gets each real tile's (core_h, core_w) float32 interior on the writer
-    thread. As in the JAX package the fused seconds start after the scene
-    upload; the per-batch ones span the whole pass."""
+    thread. ``seconds`` spans the whole call, the span ``serve.scene``:
+    the scene's read and upload, the pass, the download and the writes (the
+    JAX package's fused seconds start after the upload). On the fused paths
+    the writes are the span ``serve.write``; the resident one spans its
+    read, upload, pass and download too (``DeviceSceneCache``)."""
     if device_feed not in ("auto", "cache", "stream"):
         raise ValueError(f"device_feed must be auto, cache or stream, not {device_feed!r}")
-    device = torch.device(device)
+    with span("serve.scene"):
+        t0 = time.perf_counter()
+        out = _serve(dataset, model, batch_size, torch.device(device), device_feed,
+                     density_dtype, transfer_dtype, prefetch_depth, writer_depth, on_tile,
+                     use_native)
+        seconds = time.perf_counter() - t0
+    return dict(out, seconds=seconds, px_per_s=out["pixels"] / max(seconds, 1e-9))
+
+
+def _serve(dataset, model, batch_size, device, device_feed, density_dtype, transfer_dtype,
+           prefetch_depth, writer_depth, on_tile, use_native) -> dict:
+    """The body of ``stitched_inference``, without its clock."""
     cache = None
     if device_feed == "auto" and not mesh.group_active():
         if DeviceSceneCache.supports(dataset):
@@ -168,15 +183,11 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
             # past the resident budget: per-slab fused passes (the window)
             cache, feed = DeviceSceneWindowCache(dataset, dataset.enhance, device), "window"
     if cache is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
         density = cache.stitched_density(model, batch_size, density_dtype)
-        dataset.write_full(density)
-        dataset.close_outputs()
-        seconds = time.perf_counter() - t0
-        return {"density": density, "pixels": int(density.size), "seconds": seconds,
-                "px_per_s": density.size / max(seconds, 1e-9), "fused": True, "feed": feed}
+        with span("serve.write"):
+            dataset.write_full(density)
+            dataset.close_outputs()
+        return {"density": density, "pixels": int(density.size), "fused": True, "feed": feed}
 
     infer = cropped_infer(nhwc_infer(model), dataset.overlap_padding, dataset.patch_size)
     _, dequant = quantized_infer(infer, density_dtype)
@@ -197,7 +208,6 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
         feed = "host"
     interior = dataset.interior_sizes()
     pixels = 0
-    t0 = time.perf_counter()
 
     def forward(batch):
         if cache is not None:
@@ -232,7 +242,5 @@ def stitched_inference(dataset, model, batch_size: int, device, device_feed: str
 
     run_overlapped(prefetch(iter(loader), prefetch_depth), compute, process,
                    depth=writer_depth)
-    seconds = time.perf_counter() - t0
     dataset.close_outputs()
-    return {"density": None, "pixels": pixels, "seconds": seconds,
-            "px_per_s": pixels / max(seconds, 1e-9), "fused": False, "feed": feed}
+    return {"density": None, "pixels": pixels, "fused": False, "feed": feed}

@@ -18,8 +18,9 @@ time with and without the profiler, the device's busy time and idle share
 over the profiled step, device time by coarse group (the kernels of the
 port, the other convolutions forward and backward, BN/elementwise, pooling
 and upsampling, the optimizer, gather/copy) and by kernel name (top
-``--top``), and the layout copies (``ops.layout.copies``) the step made
-before its kernels. ``--n-devices 1`` runs the step in a world of one
+``--top``), and the layout copies (the recorder's counter
+``layout.nhwc_copies``, ``ops/layout.py``) the step made before its
+kernels. ``--n-devices 1`` runs the step in a world of one
 (``parallel.mesh``: NCCL, every all-reduce of a data-parallel step):
 ``allreduce_calls`` counts them; over one rank NCCL copies device to device
 (``dtod_copies``) where a larger world launches its kernels (the "nccl
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh
+from ..utils.timing import recording
 from .profile_serve import device_summary
 
 WSSS_SIZE = 200  # px, the side of a WHU Building CD slice
@@ -218,10 +220,6 @@ def main(argv=None) -> dict:
 
 
 def _profile(args, device) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..ops import layout
-
     if args.mode == "usss":
         run, bs = _usss_step(device, args.batch_size or 10, args.scene)
     elif args.mode == "rsss":
@@ -241,11 +239,7 @@ def _profile(args, device) -> dict:
         t0 = time.perf_counter()
         step()
         times.append(time.perf_counter() - t0)
-    copies = layout.copies
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        wall = time.perf_counter() - t0
+    wall, prof, copies = profiled_step(step, device)
     return {
         "device": torch.cuda.get_device_name(device), "mode": args.mode,
         "n_devices": args.n_devices, **collectives(prof),
@@ -254,10 +248,24 @@ def _profile(args, device) -> dict:
         "step_ms_unprofiled": [t * 1e3 for t in times],
         "step_ms_unprofiled_median": statistics.median(times) * 1e3,
         "step_ms_profiled": wall * 1e3,
-        "layout_copies_per_step": layout.copies - copies,
+        "layout_copies_per_step": copies,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         **device_summary(prof, wall, groups=GROUPS, top=args.top),
     }
+
+
+def profiled_step(step, device):
+    """One ``step()`` under ``torch.profiler`` (CPU activities, and CUDA
+    ones on a card) and the recorder: its wall seconds, the profiler, and
+    the layout copies it made (``layout.nhwc_copies``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with recording() as rec, profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+    return wall, prof, rec.counters.get("layout.nhwc_copies", 0)
 
 
 def collectives(prof) -> dict:

@@ -23,7 +23,9 @@ Gradient flow, as in the JAX package:
     gradS = d(NetLoss)/dS, with A = gen + pw*perc + sw*ssim and
     NetLoss = A + l1w*l1. l1 has no G dependence, so ONE forward and ONE
     backward of NetLoss give gradS and dA/dG; G's gradients are then
-    doubled. Then both Adam updates run.
+    doubled. Then both Adam updates run. The joint step is the span
+    ``step``, its phases ``step.forward``, ``step.loss``, ``step.backward``
+    and ``step.optimizer`` (``utils.timing``).
 
 ``remat=True`` recomputes the forwards that the JAX steps wrap in
 ``jax.checkpoint`` (steps.py:139-150, 285-301, 491-504) in the backward:
@@ -61,6 +63,7 @@ from ..models.layers import frozen_running_stats
 from ..models.vgg import VGG16Weights
 from ..ops import losses as L
 from ..parallel import mesh
+from ..utils.timing import span
 from .optim import set_lr
 
 
@@ -209,24 +212,29 @@ class USSSSteps:
 
     # -- phase 3: joint alternating with G-gradient accumulation (:289-400) --
     def joint(self, x, y, ref, item, w, lr_g, lr_s) -> Dict[str, torch.Tensor]:
-        self.G.train()
-        self.S.train()
-        y_fake = self._g_fwd(x)
-        cmap = self._s_fwd(x, y)
-        gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
-        a = gen + self.pw * perc + self.sw * ssim  # == LossG
-        net_loss = a + self.l1w * l1
-        self.opt_g.zero_grad(set_to_none=True)
-        self.opt_s.zero_grad(set_to_none=True)
-        net_loss.backward()
-        with torch.no_grad():  # dLossG/dG + dNetLoss/dG
-            for p in self.G.parameters():
-                if p.grad is not None:
-                    p.grad.mul_(2.0)
-        _apply((self.opt_g, lr_g), (self.opt_s, lr_s))
-        m = self._metrics(net_loss, gen, l1, perc, ssim)
-        m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
-        return m
+        with span("step"):
+            self.G.train()
+            self.S.train()
+            with span("step.forward"):
+                y_fake = self._g_fwd(x)
+                cmap = self._s_fwd(x, y)
+            with span("step.loss"):
+                gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
+                a = gen + self.pw * perc + self.sw * ssim  # == LossG
+                net_loss = a + self.l1w * l1
+            with span("step.backward"):
+                self.opt_g.zero_grad(set_to_none=True)
+                self.opt_s.zero_grad(set_to_none=True)
+                net_loss.backward()
+            with span("step.optimizer"):
+                with torch.no_grad():  # dLossG/dG + dNetLoss/dG
+                    for p in self.G.parameters():
+                        if p.grad is not None:
+                            p.grad.mul_(2.0)
+                _apply((self.opt_g, lr_g), (self.opt_s, lr_s))
+            m = self._metrics(net_loss, gen, l1, perc, ssim)
+            m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
+            return m
 
     # -- inference (:404-473) -------------------------------------------------
     @torch.no_grad()
