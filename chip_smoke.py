@@ -865,6 +865,38 @@ def _model_counts(torch, side, nband=3):
             "vgg_pools": vgg_pools, "levels": levels}
 
 
+@contextlib.contextmanager
+def joint_calls():
+    """Within the block, the USSS joint steps' counts as ``train.steps``
+    makes them (``step.eager``, ``step.graph_captures``,
+    ``step.graph_replays``), whether a recording is open or not. On the card
+    a batch shape's first joint call runs the step twice on the host, the
+    eager step and its capture, and the kernel wrappers count the launches
+    of both; a replay runs on the device alone, and the wrappers count none
+    of it (``replay_phase`` counts a replay's kernels on the device)."""
+    from fcdgan_tpu_torch.train import steps as steps_mod
+
+    seen = collections.Counter()
+    orig = steps_mod.count
+
+    def counted(name, n=1):
+        seen[name] += n
+        orig(name, n)
+
+    steps_mod.count = counted
+    try:
+        yield seen
+    finally:
+        steps_mod.count = orig
+
+
+def host_joint_steps(n_joint, seen):
+    """Of ``n_joint`` joint steps (``seen``: their ``joint_calls``), the
+    passes whose launches the kernel wrappers count: every step but the
+    replays, and each capture once more."""
+    return n_joint - seen["step.graph_replays"] + seen["step.graph_captures"]
+
+
 def _launch_totals(per_step, n_steps):
     """Each kernel's launches in a phase: its launches per step of each kind
     times the number of steps of that kind."""
@@ -883,7 +915,7 @@ def _split_counts(k, split):
 
 
 def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=None,
-                     split=False):
+                     split=False, seen=None):
     """Each kernel's launches in a USSS run, from the models' structure
     (``_model_counts``) and the steps per epoch (``steps``, else one per
     batch of ``n_tiles``) and inference chunks (``chunks``, else the fused
@@ -892,7 +924,10 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     S-init step runs G forward without a graph and S and the VGG (one
     stacked pass) forward and backward; a joint step both nets forward and
     backward; an inference chunk S in eval mode. ``split``: S's encoder runs
-    once per branch (``_split_counts``), in eval mode too."""
+    once per branch (``_split_counts``), in eval mode too. ``seen``: the
+    run's ``joint_calls``, so that the joint steps are counted as the kernel
+    wrappers count them (``host_joint_steps``); without it, every step once,
+    as the device runs them."""
     from fcdgan_tpu_torch.data.device_cache import serve_chunks
 
     k = _model_counts(torch, PATCH)
@@ -900,6 +935,8 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     chunks = len(serve_chunks(n_tiles, BATCH)) if chunks is None else chunks
     n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * steps for e in epochs)),
                    inference_chunk=chunks)
+    if seen is not None:
+        n_steps["joint"] = host_joint_steps(n_steps["joint"], seen)
     sc, sb, sp, _ = _split_counts(k, split)
     gb, vp = k["g_bns"], k["vgg_pools"]
     gs_convs, levels = k["g_convs"] + sc, k["levels"]
@@ -1219,10 +1256,11 @@ def train_phase(torch, work):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_usss.main(argv)
+    with joint_calls() as seen:
+        out = demo_usss.main(argv)
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want, per_step = derived_launches(torch, out["tiles"])
+    want, per_step = derived_launches(torch, out["tiles"], seen=seen)
     ev = out["evaluator"]
     density = open_raster(out["density_path"]).read_block()[..., 0]
     load_segmentor(out["smodel_path"])  # strict load of the reference state_dict
@@ -1242,6 +1280,8 @@ def train_phase(torch, work):
         "metrics_finite": all(math.isfinite(v) for v in metrics.values()),
         "launches": launches == want,
         "conv3x3_all_wgmma": all_wgmma(launches, variants),
+        "joint_graphed": seen["step.graph_replays"] > 0
+        and seen["step.eager"] == seen["step.graph_captures"] > 0,
     }
     phase("train", {
         "seconds": seconds, "tiles": out["tiles"],
@@ -1252,7 +1292,7 @@ def train_phase(torch, work):
         "tile_mpx_per_s_warm": out["tiles"] * PATCH * PATCH * len(warm) / sum(warm) / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
-        "per_step": per_step,
+        "per_step": per_step, "joint_calls": dict(seen),
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
@@ -1272,14 +1312,20 @@ def train_args(tdir, ext, epochs, *extra):
 @contextlib.contextmanager
 def record_ssim_levels():
     """Within the block, every MS-SSIM level the port computes is kept in the
-    yielded list as (x, y, the level's other arguments, (ssim, cs) tables)."""
+    yielded list as (x, y, the level's other arguments, (ssim, cs) tables).
+    A level met while a CUDA graph is being captured computes nothing (the
+    joint step's first call on the card captures after its eager step), so
+    it is not kept."""
+    import torch
+
     from fcdgan_tpu_torch.ops import ssim as ssim_mod
 
     orig, levels = ssim_mod._ssim_level, []
 
     def level(x, y, *args):
         out = orig(x, y, *args)
-        levels.append((x.detach(), y.detach(), args, tuple(t.detach() for t in out)))
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            levels.append((x.detach(), y.detach(), args, tuple(t.detach() for t in out)))
         return out
 
     ssim_mod._ssim_level = level
@@ -2059,11 +2105,13 @@ def usss_window_phase(torch, work, scene):
         for cache in ("on", "window"):
             reset_launches(counters)
             t0 = time.perf_counter()
-            out = demo_usss.main(usss_args(work, f"_{cache}", "--scene-cache", cache))
-            runs[cache] = (out, time.perf_counter() - t0, *launch_counts(counters))
+            with joint_calls() as seen:
+                out = demo_usss.main(usss_args(work, f"_{cache}", "--scene-cache", cache))
+            runs[cache] = (out, time.perf_counter() - t0, *launch_counts(counters), seen)
         n = runs["on"][0]["tiles"]
-        want_launches = {"on": derived_launches(torch, n, (1, 1, 1))[0],
-                         "window": derived_launches(torch, n, (1, 1, 1), steps, chunks)[0]}
+        want_launches = {"on": derived_launches(torch, n, (1, 1, 1), seen=runs["on"][4])[0],
+                         "window": derived_launches(torch, n, (1, 1, 1), steps, chunks,
+                                                    seen=runs["window"][4])[0]}
         win = DeviceSceneWindowCache(ds, ds.enhance, "cuda")
         resident = DeviceSceneCache(ds, ds.enhance, "cuda")
         seen, tiles_equal = [], True
@@ -2133,11 +2181,12 @@ def usss_host_phase(torch, work, scene):
     counters = kernel_counters()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_usss.main(usss_args(work, "_host", "--scene-cache", "off"))
+    with joint_calls() as seen:
+        out = demo_usss.main(usss_args(work, "_host", "--scene-cache", "off"))
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
     n = out["tiles"]
-    want = derived_launches(torch, n, (1, 1, 1), chunks=-(-n // BATCH))[0]
+    want = derived_launches(torch, n, (1, 1, 1), chunks=-(-n // BATCH), seen=seen)[0]
     ds = scene_dataset(work, scene, ref_path=scene["ref"])
     resident = DeviceSceneCache(ds, ds.enhance, "cuda")
     feeds, tiles_ok = {}, True
@@ -2446,10 +2495,13 @@ def usss_split_phase(torch, tdir, joint):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_usss.main(train_args(tdir, "_split", SPLIT_EPOCHS, "--siamese-stats", "split"))
+    with joint_calls() as seen:
+        out = demo_usss.main(train_args(tdir, "_split", SPLIT_EPOCHS, "--siamese-stats",
+                                        "split"))
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want, per_step = derived_launches(torch, out["tiles"], SPLIT_EPOCHS, split=True)
+    want, per_step = derived_launches(torch, out["tiles"], SPLIT_EPOCHS, split=True,
+                                      seen=seen)
     density = open_raster(out["density_path"]).read_block()[..., 0]
     sec, jsec = out["epoch_seconds"], joint["epoch_seconds"]
     losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
@@ -2533,10 +2585,12 @@ def remat_phase(torch, tdir):
         for remat in (False, True):
             steps = make(dtype, remat)
             reset_launches(counters)
-            m = steps.joint(*args)
+            with joint_calls() as seen:
+                m = steps.joint(*args)
             torch.cuda.synchronize()
             launches, _ = launch_counts(counters)
-            want = {n: plain[n] + (again.get(n, 0) if remat else 0) for n in plain}
+            passes = host_joint_steps(1, seen)  # eager, and without remat its capture
+            want = {n: passes * plain[n] + (again.get(n, 0) if remat else 0) for n in plain}
             checks[f"{dt_name}_{'remat' if remat else 'plain'}_launches"] = launches == want
             if remat and dt_name == "bfloat16":
                 launches_out = launches
@@ -2546,7 +2600,7 @@ def remat_phase(torch, tdir):
             res[remat] = ({key: float(v) for key, v in m.items() if key != "confusion"},
                           bufs, launches, want)
             del steps, m
-            gc.collect()  # the steps' closures make a cycle: free its nets now
+            gc.collect()
         (m0, b0, l0, w0), (m1, b1, l1, w1) = res[False], res[True]
         stat_err = max((b1[key] - v).abs().max().item() for key, v in b0.items()
                        if not key.endswith("num_batches_tracked"))
@@ -2578,6 +2632,68 @@ def remat_phase(torch, tdir):
     if not all(checks.values()):
         raise AssertionError(f"remat checks failed: {checks}")
     return launches_out
+
+
+def replay_phase(torch, tdir):
+    """The USSS joint step on the card as CUDA graphs, its replays counted
+    on the device: the train phase's settings (bf16, full-width G and S, per-band
+    perception at relu5_3) on BATCH tiles of its scene and on a 1-tile tail.
+    Each shape's first call is its eager step and its capture, which the
+    kernel wrappers count twice; then three replays under torch.profiler,
+    each of which launches every kernel, by its symbol, as often as the
+    joint step's derived count says (``derived_launches``; channel_sums and
+    channel_sums_pair share one symbol), while the wrappers count none."""
+    from fcdgan_tpu_torch.data.datasets import ScenePairDataset
+    from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
+    from fcdgan_tpu_torch.data.normalize import Normalize
+    from fcdgan_tpu_torch.data.stats import dataset_meanstd
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.train.optim import adam
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+    scaler = Normalize(*dataset_meanstd(os.path.join(tdir, "T1_stats.txt"),
+                                        os.path.join(tdir, "T2_stats.txt"), None))
+    ds = ScenePairDataset(os.path.join(tdir, "T1.tif"), os.path.join(tdir, "T2.tif"),
+                          ref_path=os.path.join(tdir, "ref.tif"), enhance=scaler,
+                          patch_size=(PATCH, PATCH), overlap_padding=(PAD, PAD))
+    cache = DeviceSceneCache(ds, scaler, "cuda")
+    torch.manual_seed(0)
+    net_g = Generator(3, compute_dtype=torch.bfloat16).cuda()
+    net_s = Segmentor(3, compute_dtype=torch.bfloat16).cuda()
+    steps = USSSSteps(net_g, net_s, adam(net_g.parameters()), adam(net_s.parameters()),
+                      VGG16Weights(vgg16_random_params(0), "cuda"),
+                      PerceptionConfig((29,), True, torch.bfloat16),
+                      0.4, 0.65, 0.0, ds.grid.interior_sizes(), (PAD, PAD))
+    counters = kernel_counters()
+    _, per_step = derived_launches(torch, BATCH)
+    joint = {k: kinds.get("joint", 0) for k, kinds in per_step.items()}
+    want = {k: joint[k] for k in KERNEL_SYMBOLS}
+    want["channel_sums"] += joint["channel_sums_pair"]
+    res, checks = {}, {}
+    for n in (BATCH, 1):
+        db = cache.complete({"item": list(range(n)), "weight": [1.0] * n})
+        args = (db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+        reset_launches(counters)
+        with joint_calls() as seen:
+            steps.joint(*args)
+            first, _ = launch_counts(counters)
+            launched = device_launches(torch, lambda: steps.joint(*args))
+            replays, _ = launch_counts(counters)
+        got = [{k: sum(sym in name for name in names) for k, sym in KERNEL_SYMBOLS.items()}
+               for names in launched]
+        res[f"tiles{n}"] = {"device_launches_per_replay": got, "derived": want,
+                            "host_launches_first_call": first, "joint_calls": dict(seen)}
+        checks[f"tiles{n}_replays_launch_the_derived"] = all(g == want for g in got)
+        checks[f"tiles{n}_first_call_counts_twice"] = first == {k: 2 * v
+                                                               for k, v in joint.items()}
+        checks[f"tiles{n}_replays_not_counted_on_the_host"] = replays == first
+        checks[f"tiles{n}_calls"] = dict(seen) == {"step.eager": 1, "step.graph_captures": 1,
+                                                   "step.graph_replays": 4}
+    phase("replay", {**res, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"replay checks failed: {checks}")
 
 
 def resume_phase(torch, tdir):
@@ -2622,12 +2738,13 @@ def resume_phase(torch, tdir):
         with open(os.path.join(ckdir, "meta.json")) as f:
             meta = json.load(f)
         reset_launches(counters)
-        second = demo_usss.main(train_args(tdir, "_resume", (1, 1, 1), "--resume", "true",
-                                           "--save-checkpoints", "false"))
+        with joint_calls() as seen:
+            second = demo_usss.main(train_args(tdir, "_resume", (1, 1, 1), "--resume", "true",
+                                               "--save-checkpoints", "false"))
         launches, variants = launch_counts(counters)
     finally:
         TrainCheckpointer.maybe_save, TrainCheckpointer.restore = orig_save, orig_restore
-    want, _ = derived_launches(torch, second["tiles"], (0, 0, 1))
+    want, _ = derived_launches(torch, second["tiles"], (0, 0, 1), seen=seen)
 
     def same(a, b):
         if isinstance(a, dict):
@@ -2649,6 +2766,7 @@ def resume_phase(torch, tdir):
         and second["start_epochs"] == {"g": 10**9, "s": 1, "joint": 0},
         "restored_bit_equal": restored.keys() == saved.keys() and all(bit_equal.values()),
         "adam_moments_saved": bool(saved["netS"]["optimizer"]["state"]),
+        "resumed_joint_graphed": seen["step.graph_replays"] > 0,
         "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
     sizes = {name: os.path.getsize(os.path.join(ckdir, f"{name}.pt")) for name in saved}
     shutil.rmtree(ckdir)
@@ -2673,11 +2791,14 @@ def profile_phase(torch, tdir, work):
     counters = kernel_counters()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_usss.main(train_args(tdir, "_prof", (1, 0, 1), "--profile-dir", prof,
-                                    "--save-checkpoints", "false"))
+    with joint_calls() as seen:
+        out = demo_usss.main(train_args(tdir, "_prof", (1, 0, 1), "--profile-dir", prof,
+                                        "--save-checkpoints", "false"))
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want, _ = derived_launches(torch, out["tiles"], (1, 0, 1))
+    want, _ = derived_launches(torch, out["tiles"], (1, 0, 1), seen=seen)
+    on_device, _ = derived_launches(torch, out["tiles"], (1, 0, 1))
+    on_device["channel_sums"] += on_device.pop("channel_sums_pair")
     traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
     events = collections.Counter()
     if traces:
@@ -2692,10 +2813,12 @@ def profile_phase(torch, tdir, work):
         "one_trace": len(traces) == 1,
         "kernel_events": all(events["channel_sums" if kname == "channel_sums_pair" else kname]
                              for kname in launched),
+        "kernel_events_derived": all(events[k] == n for k, n in on_device.items()),
         "launches": launches == want, "conv3x3_all_wgmma": all_wgmma(launches, variants)}
     trace_mb = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 1e6
     shutil.rmtree(prof)
     phase("profile", {"seconds": seconds, "trace_mb": trace_mb, "kernel_events": dict(events),
+                      "derived_kernel_events": on_device, "joint_calls": dict(seen),
                       "launches": launches, "derived_launches": want, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"profile checks failed: {checks}")
@@ -2828,11 +2951,13 @@ def dp_world1_phase(torch, tdir):
                        ("world1_b", ("--n-devices", "1")), ("no_group_b", ("--tail", "pad"))):
         reset_launches(counters)
         t0 = time.perf_counter()
-        out = demo_usss.main(train_args(tdir, f"_{tag}", TRAIN_EPOCHS, *extra))
+        with joint_calls() as seen:
+            out = demo_usss.main(train_args(tdir, f"_{tag}", TRAIN_EPOCHS, *extra))
         runs[tag] = {"out": out, "seconds": time.perf_counter() - t0,
-                     "launches": launch_counts(counters),
+                     "launches": launch_counts(counters), "joint_calls": seen,
                      "density": open_raster(out["density_path"]).read_block()[..., 0]}
-    want, _ = derived_launches(torch, runs["world1"]["out"]["tiles"])
+    n = runs["world1"]["out"]["tiles"]
+    want = {t: derived_launches(torch, n, seen=r["joint_calls"])[0] for t, r in runs.items()}
 
     def gaps(a, b):
         ra, rb = runs[a], runs[b]
@@ -2860,7 +2985,9 @@ def dp_world1_phase(torch, tdir):
         "losses_within": all(c[1] <= tol[1] for c in cross),
         "epochs": all(len(em[t][ph]) == n for t in em
                       for ph, n in zip(("g", "s", "joint"), TRAIN_EPOCHS)),
-        **{f"launches_{t}": r["launches"][0] == want for t, r in runs.items()},
+        **{f"launches_{t}": r["launches"][0] == want[t] for t, r in runs.items()},
+        "world1_eager": all(not r["joint_calls"]["step.graph_captures"]
+                            for t, r in runs.items() if t.startswith("world1")),
         **{f"conv3x3_all_wgmma_{t}": all_wgmma(*r["launches"]) for t, r in runs.items()},
         "allreduces_cover_every_bn": prof[1]["allreduce_calls"] >= bn_passes,
         "no_collective_without_group": prof[0]["allreduce_calls"] == 0,
@@ -2885,7 +3012,8 @@ def dp_world1_phase(torch, tdir):
                            "no_group": prof[0]["step_ms_unprofiled_median"]},
         "device_busy_ms": {"world1": prof[1]["device_busy_ms"],
                            "no_group": prof[0]["device_busy_ms"]},
-        "launches": runs["world1"]["launches"][0], "derived_launches": want,
+        "launches": runs["world1"]["launches"][0], "derived_launches": want["world1"],
+        "joint_calls": {t: dict(r["joint_calls"]) for t, r in runs.items()},
         "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"dp_world1 checks failed: {checks}")
@@ -2926,9 +3054,11 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
     """One USSS joint and one WSSS adversarial step in f32 on this rank's
     slices of the padded global batches (the whole batches without a group),
     from the seeded ``state``: per step, metrics, state dicts and the summed
-    gradients on the CPU, and the kernels' launches. With ``seed`` each
-    image element is scaled by (1 + 1e-7 N(0, 1)), about one float32
-    rounding (the witness)."""
+    gradients on the CPU, the kernels' launches and the passes of the step
+    they count (a graphed joint step's first call: two, ``joint_calls``; an
+    eager step, as under a group: one). With ``seed`` each image element is
+    scaled by (1 + 1e-7 N(0, 1)), about one float32 rounding (the
+    witness)."""
     from fcdgan_tpu_torch.data.datasets import ScenePairDataset
     from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
     from fcdgan_tpu_torch.data.normalize import Normalize
@@ -2956,9 +3086,9 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
             made[n].cuda()
         return [made[n] for n in names]
 
-    def result(m, **named):
+    def result(m, passes=1, **named):
         torch.cuda.synchronize()
-        return {"metrics": {k: v.detach().cpu() for k, v in m.items()},
+        return {"metrics": {k: v.detach().cpu() for k, v in m.items()}, "passes": passes,
                 "state": {n: {k: v.detach().cpu() for k, v in net.state_dict().items()}
                           for n, net in named.items()},
                 "grads": {n: {k: p.grad.detach().cpu() for k, p in net.named_parameters()
@@ -2981,8 +3111,9 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
     db = DeviceSceneCache(ds, scaler, "cuda").complete(mesh.shard_batch(usss))
     db["x"], db["y"] = scaled(db["x"]), scaled(db["y"])
     reset_launches(counters)
-    m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
-    out["usss_joint"] = result(m, g=g, s=s)
+    with joint_calls() as seen:
+        m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
+    out["usss_joint"] = result(m, host_joint_steps(1, seen), g=g, s=s)
     del steps, db
     g, s, d = nets("g", "s", "d")
     steps = WSSSSteps(g, s, d, adam(g.parameters()), rmsprop(s.parameters()),
@@ -3075,7 +3206,8 @@ def dp_two_ranks_phase(torch, tdir, work):
     duplicates) and one WSSS adversarial step on 15 seeded 200² pairs
     wrap-padded to 16, f32 at full width, each rank on its half, against the
     single-process step on the same padded batch (``_dp_compare``); both
-    ranks' states bit-equal; each rank's launches as the one process's."""
+    ranks' states bit-equal; each rank's launches a pass of the step as the
+    one process's."""
     import torch.multiprocessing as mp
 
     from fcdgan_tpu_torch.models.discriminator import Discriminator
@@ -3112,9 +3244,13 @@ def dp_two_ranks_phase(torch, tdir, work):
         checks[f"{step}_ranks_bit_equal"] = equal
         results[step] = {"worst": worst, "ranks_bit_equal": equal,
                          "launches_rank0": ranks[0][step]["launches"],
-                         "launches_one_process": want[step]["launches"]}
-        checks[f"{step}_launches_as_one_process"] = (ranks[0][step]["launches"]
-                                                    == want[step]["launches"])
+                         "launches_one_process": want[step]["launches"],
+                         "passes_rank0_one_process": [ranks[0][step]["passes"],
+                                                      want[step]["passes"]]}
+        r, w = ranks[0][step], want[step]  # launches a pass of the step, on each side
+        checks[f"{step}_launches_as_one_process"] = (
+            {k: n * w["passes"] for k, n in r["launches"].items()}
+            == {k: n * r["passes"] for k, n in w["launches"].items()})
     phase("dp_two_ranks", {"backend": "gloo", "ranks_seconds": rank_seconds,
                            "usss_tiles": len(usss["item"]), "wsss_pairs": len(wsss["weight"]),
                            **results, "checks": checks})
@@ -3187,21 +3323,24 @@ def bench_phase(torch):
     _, usss = derived_launches(torch, BENCH_TILES)
     _, wsss = derived_wsss_launches(torch)
     _, rsss = derived_rsss_launches(torch, 2 * BENCH_TILES, 0)
-    runs, checks, launches = {}, {}, {}
+    runs, checks, launches, calls = {}, {}, {}, {}
 
     def run(name, fn, *args, **kw):
         reset_launches(counters)
         t0 = time.perf_counter()
-        runs[name] = fn(*args, **kw)
+        with joint_calls() as calls[name]:
+            runs[name] = fn(*args, **kw)
         launches[name] = launch_counts(counters)
         runs[name + "_seconds"] = time.perf_counter() - t0
         return runs[name]
 
     def derived(name, per_step, kind, n_steps):
         got, variants = launches[name]
-        want = {k: per_step[k].get(kind, 0) * n_steps for k in counters}
+        passes = host_joint_steps(n_steps, calls[name]) if kind == "joint" else n_steps
+        want = {k: per_step[k].get(kind, 0) * passes for k in counters}
         checks[name + "_launches"] = got == want and all_wgmma(got, variants)
-        return {"launches": got, "derived": want, "steps": n_steps}
+        return {"launches": got, "derived": want, "steps": n_steps,
+                "joint_calls": dict(calls[name])}
 
     torch.cuda.empty_cache()
     out = {}
@@ -3402,6 +3541,7 @@ def main():
         torch.cuda.empty_cache()
         launches, tdir, train = train_phase(torch, work)
         train_parity_phase(torch, tdir)
+        replay_phase(torch, tdir)
         more["usss_split"] = usss_split_phase(torch, tdir, train)
         train_parity_phase(torch, tdir, "split")
         more["remat"] = remat_phase(torch, tdir)

@@ -19,6 +19,7 @@ import torch
 
 from ..models.segmentor import Segmentor
 from ..parallel import mesh
+from ..train import optim
 
 
 def save_net(path: str, module: torch.nn.Module) -> None:
@@ -39,8 +40,9 @@ class TrainCheckpointer:
 
     ``maybe_save(phase, epoch, name=(module, optimizer), ...)`` writes, after
     every ``every``-th epoch of a phase, one ``{name}.pt`` per net holding its
-    ``state_dict`` (parameters and BatchNorm buffers) and its optimizer's,
-    then ``meta.json`` with ``{"phase", "epoch"}`` (each file written to a
+    ``state_dict`` (parameters and BatchNorm buffers) and its optimizer's
+    (``train.optim.state_dict``: an Adam a CUDA graph made capturable is
+    saved as the plain one, so the file loads on any device), then ``meta.json`` with ``{"phase", "epoch"}`` (each file written to a
     temporary name and moved into place). ``restore`` loads them into the
     caller's modules and optimizers and returns the meta record, from which
     ``start_epochs`` gives each phase's first epoch. As in the JAX package,
@@ -81,7 +83,7 @@ class TrainCheckpointer:
             os.makedirs(self.dir, exist_ok=True)
             for name, (module, opt) in nets.items():
                 _save_atomic({"state_dict": module.state_dict(),
-                              "optimizer": opt.state_dict()}, self._net_path(name))
+                              "optimizer": optim.state_dict(opt)}, self._net_path(name))
             tmp = self._meta_path() + ".tmp"
             with open(tmp, "w") as f:
                 json.dump({"phase": phase, "epoch": epoch}, f)

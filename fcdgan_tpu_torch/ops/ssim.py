@@ -11,11 +11,15 @@ Each level whose H and W are at least the window runs through the fused
 kernel wrapper ``ops.fused_ssim.ssim_level`` (the JAX package's own gate,
 ``use_pallas_ssim``'s H, W >= win_size). A smaller level takes the plain
 composite below with the axis-skip rule, on any device. Tensors are NHWC
-float32, as in the JAX package.
+float32, as in the JAX package. The Gaussian window and the MS-SSIM level
+weights are uploaded once per device and kept for good (``_window``,
+``_level_weights``): a step captured in a CUDA graph may not copy from the
+host, and reads their addresses for as long as it replays.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +34,19 @@ def gaussian_window(win_size: int, sigma: float) -> np.ndarray:
     coords = np.arange(win_size, dtype=np.float64) - win_size // 2
     g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
     return (g / g.sum()).astype(np.float32)
+
+
+@functools.cache
+def _window(win_size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """``gaussian_window(win_size, sigma)`` on ``device``, made once and kept."""
+    return torch.from_numpy(gaussian_window(win_size, sigma)).to(device)
+
+
+@functools.cache
+def _level_weights(weights: Tuple[float, ...], dtype: torch.dtype, device: torch.device
+                   ) -> torch.Tensor:
+    """The MS-SSIM level weights on ``device``, made once and kept."""
+    return torch.tensor(weights, dtype=dtype, device=device)
 
 
 def gaussian_filter(x: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
@@ -73,7 +90,7 @@ def _ssim_level(x, y, data_range, win_size, win_sigma, k):
         from .fused_ssim import ssim_level
 
         return ssim_level(x, y, float(data_range), win_size, win_sigma, k[0], k[1])
-    win = torch.from_numpy(gaussian_window(win_size, win_sigma)).to(x.device)
+    win = _window(win_size, float(win_sigma), x.device)
     return _ssim_maps(x, y, data_range, win, k)
 
 
@@ -117,7 +134,7 @@ def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 255.0,
     if smaller_side <= min_side:
         raise ValueError("Image size should be larger than %d due to the %d "
                          "downsamplings in ms-ssim" % (min_side, levels - 1))
-    w = torch.tensor(weights, dtype=x.dtype, device=x.device).view(-1, 1, 1)
+    w = _level_weights(tuple(float(v) for v in weights), x.dtype, x.device).view(-1, 1, 1)
     mcs = []
     ssim_pc = None
     for i in range(levels):

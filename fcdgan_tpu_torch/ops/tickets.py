@@ -10,20 +10,20 @@ one per group of its blocks: channel_sums one per channel tile, fused_ssim
 one per image), zeroed when it is allocated (that fill is the only launch
 besides the kernels'); kernels on two streams never share one. The array
 starts at ``MAX_TICKETS`` counters and is replaced by a larger zeroed one when
-a call needs more (``counter_size``); the old one goes back to the caching
-allocator on the same stream, so no launch still in flight can see its memory
-reused.
+a call needs more (``counter_size``). The old one is kept, not freed: a CUDA
+graph captured on the stream holds its address for as long as it replays.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 MAX_TICKETS = 1024  # counters a stream's array starts with (channel_sums' kMaxTickets)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+_REPLACED: List[torch.Tensor] = []
 
 
 def counter_size(have: int, need: int) -> int:
@@ -38,11 +38,14 @@ def counter_size(have: int, need: int) -> int:
 def counters(table: Dict, key, need: int, zeros: Callable[[int], torch.Tensor]
              ) -> torch.Tensor:
     """The counter array of ``key`` in ``table``, made or replaced by
-    ``zeros(size)`` when it holds fewer than ``need``."""
+    ``zeros(size)`` when it holds fewer than ``need`` (the replaced one is
+    kept alive)."""
     counter = table.get(key)
     have = 0 if counter is None else counter.numel()
     size = counter_size(have, need)
     if size > have:
+        if counter is not None:
+            _REPLACED.append(counter)
         counter = table[key] = zeros(size)
     return counter
 

@@ -20,11 +20,15 @@ port, the other convolutions forward and backward, BN/elementwise, pooling
 and upsampling, the optimizer, gather/copy) and by kernel name (top
 ``--top``), and the layout copies (the recorder's counter
 ``layout.nhwc_copies``, ``ops/layout.py``) the step made before its
-kernels. ``--n-devices 1`` runs the step in a world of one
-(``parallel.mesh``: NCCL, every all-reduce of a data-parallel step):
-``allreduce_calls`` counts them; over one rank NCCL copies device to device
-(``dtod_copies``) where a larger world launches its kernels (the "nccl
-all-reduce" group, ``nccl_kernels``).
+kernels. On a card the USSS joint step is a CUDA graph by then
+(``train.steps.StepGraphs``): the profiled step is a replay
+(``graph_replay``), whose kernels the trace shows without the host's
+ops, and whose layout copies, counted on the host, read null.
+``--n-devices 1`` runs the step in a world of one (``parallel.mesh``:
+NCCL, every all-reduce of a data-parallel step): ``allreduce_calls``
+counts them; over one rank NCCL copies device to device (``dtod_copies``)
+where a larger world launches its kernels (the "nccl all-reduce" group,
+``nccl_kernels``).
 
 Run on a machine with a CUDA card, from the repository root:
 
@@ -248,6 +252,7 @@ def _profile(args, device) -> dict:
         "step_ms_unprofiled": [t * 1e3 for t in times],
         "step_ms_unprofiled_median": statistics.median(times) * 1e3,
         "step_ms_profiled": wall * 1e3,
+        "graph_replay": copies is None,
         "layout_copies_per_step": copies,
         "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
         **device_summary(prof, wall, groups=GROUPS, top=args.top),
@@ -257,7 +262,9 @@ def _profile(args, device) -> dict:
 def profiled_step(step, device):
     """One ``step()`` under ``torch.profiler`` (CPU activities, and CUDA
     ones on a card) and the recorder: its wall seconds, the profiler, and
-    the layout copies it made (``layout.nhwc_copies``)."""
+    the layout copies it made (``layout.nhwc_copies``), None when it was a
+    CUDA graph's replay (``step.graph_replays``), which makes none on the
+    host."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -265,6 +272,8 @@ def profiled_step(step, device):
         t0 = time.perf_counter()
         step()
         wall = time.perf_counter() - t0
+    if rec.counters.get("step.graph_replays", 0):
+        return wall, prof, None
     return wall, prof, rec.counters.get("layout.nhwc_copies", 0)
 
 

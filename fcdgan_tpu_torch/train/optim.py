@@ -8,6 +8,22 @@ root, no momentum, not centered (Demo_WSSS.py:121-122, optim.py:210-249).
 The port sets the param group's learning rate once per epoch, which is the
 same arithmetic.
 
+A leaf Adam whose parameters are all on a card can be made capturable
+(``make_capturable``), so that its step runs inside a CUDA graph (the USSS
+joint step, ``train.steps.StepGraphs``, which does it at its first graphed
+call) and its rate still moves per epoch: the group turns
+``capturable``, its rate becomes a 0-d tensor on the parameters' device
+and its step counts move there, as torch keeps them for a capturable Adam.
+``set_lr`` fills a tensor rate in place, and only when the value changes,
+so setting the same rate every step launches nothing and never waits for
+the device. ``build`` makes the plain Adam, with a float rate and
+torch's default step, and it stays so until a graph takes it: every Adam
+of WSSS and RSSS, the USSS Adams before the first joint step (the G
+pretrain, the S init), and every optimizer on the CPU. ``state_dict``
+saves a capturable Adam in the plain form, so a checkpoint loads on any
+device into the optimizer ``build`` makes; the next graphed step makes it
+capturable again.
+
 The layout of the optimizer state is the JAX package's choice
 (``_opt_mode``, optim.py:26-52), read from the environment when an
 optimizer is built: ``FCDGAN_OPT=leaf|flat|grouped``, or
@@ -192,5 +208,58 @@ def rmsprop(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Each param group's rate: a float is assigned; a tensor rate
+    (``make_capturable``) is filled in place when ``lr`` differs from the
+    value last written (the group's ``lr_value``)."""
+    lr = float(lr)
     for group in opt.param_groups:
-        group["lr"] = float(lr)
+        rate = group["lr"]
+        if not isinstance(rate, torch.Tensor):
+            group["lr"] = lr
+        elif group.get("lr_value") != lr:
+            rate.fill_(lr)
+            group["lr_value"] = lr
+
+
+def capturable(opt: torch.optim.Optimizer) -> bool:
+    """Whether ``make_capturable`` can make ``opt``'s step one that a CUDA
+    graph holds, once its parameters are on a card: a leaf Adam (torch's
+    own, not fused)."""
+    return type(opt) is torch.optim.Adam and not any(
+        group.get("fused") for group in opt.param_groups)
+
+
+def make_capturable(opt: torch.optim.Optimizer) -> None:
+    """``opt`` (``capturable(opt)``) made capturable in place, where it is
+    not yet: each param group ``capturable``, its rate a 0-d tensor on the
+    parameters' device holding the rate it had, and the step count of each
+    parameter's state moved there. Cheap when nothing is left to do, as
+    after the first call; a ``load_state_dict`` undoes it, and the next call
+    redoes it."""
+    for group in opt.param_groups:
+        dev = group["params"][0].device
+        rate = group["lr"]
+        if (group["capturable"] and isinstance(rate, torch.Tensor)
+                and rate.device == dev):
+            continue
+        value = float(rate)
+        group["lr"] = torch.full((), value, dtype=torch.float32, device=dev)
+        group["lr_value"] = value
+        group["capturable"] = True
+        for p in group["params"]:
+            step = opt.state.get(p, {}).get("step")
+            if step is not None:
+                opt.state[p]["step"] = step.to(p.device)
+
+
+def state_dict(opt: torch.optim.Optimizer) -> dict:
+    """``opt.state_dict()`` in the form of the optimizer ``build`` makes: a
+    tensor rate (``make_capturable``) saved as the float it holds, with
+    ``capturable`` off, so that the state loads on the CPU as on a card."""
+    sd = opt.state_dict()
+    for group in sd["param_groups"]:  # the optimizer's own groups are not these
+        if isinstance(group["lr"], torch.Tensor):
+            value = group.pop("lr_value", None)
+            group["lr"] = float(group["lr"]) if value is None else value
+            group["capturable"] = False
+    return sd

@@ -27,6 +27,30 @@ Gradient flow, as in the JAX package:
     ``step``, its phases ``step.forward``, ``step.loss``, ``step.backward``
     and ``step.optimizer`` (``utils.timing``).
 
+The joint step on a card is a CUDA graph (``StepGraphs``), one per shape of
+its batch, all in one memory pool: dispatching a step eagerly takes the
+host longer than the device takes to run it (thousands of small launches:
+the train-mode BatchNorms, the per-band VGG passes, the MS-SSIM levels,
+Adam). A shape's first call is an eager step on the stream the graph is
+captured on, which warms cuDNN, cuBLAS, the ticket counters and Adam's
+state; the same call then captures the step without running it. Every later
+call of that shape copies ``x``, ``y``, ``ref``, ``item`` and ``weight``
+into the graph's static inputs and replays it. The learning rates are not
+in the graph: the first graphed call makes both Adams capturable, with a
+tensor rate that ``set_lr`` fills (``train.optim.make_capturable``). The
+metrics come back cloned, so a caller may keep them; after a replay
+``.grad`` holds that graph's gradients and the optimizers' moments are
+their own tensors, as after an eager step. The recorder counts
+``step.eager``, ``step.graph_captures`` and ``step.graph_replays``. The
+phase spans, the other counters and the kernel wrappers' ``launches`` count
+on the host, in eager steps and during a capture; a replay adds none of
+them (its kernels show only on the device's trace). The step stays eager
+where it can see that a graph would not do: off CUDA, under a process group
+(``mesh.active()``), with ``remat``, with an optimizer whose step cannot be
+captured (the ``flat`` and ``grouped`` layouts), and under autograd anomaly
+detection (``--debug-nans``). The G pretrain, the S init and the WSSS and
+RSSS steps stay eager.
+
 ``remat=True`` recomputes the forwards that the JAX steps wrap in
 ``jax.checkpoint`` (steps.py:139-150, 285-301, 491-504) in the backward:
 the G and S forwards of USSS, the G forward of the WSSS and RSSS G
@@ -63,8 +87,8 @@ from ..models.layers import frozen_running_stats
 from ..models.vgg import VGG16Weights
 from ..ops import losses as L
 from ..parallel import mesh
-from ..utils.timing import span
-from .optim import set_lr
+from ..utils.timing import count, span
+from .optim import capturable, make_capturable, set_lr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,16 +126,134 @@ def rematerialized(fn: Callable, *modules: torch.nn.Module) -> Callable:
     return run
 
 
+def _as_is(fn: Callable, *modules: torch.nn.Module) -> Callable:
+    """``fn`` itself: the steps' forwards without ``remat``."""
+    return fn
+
+
+def _params(*opts: torch.optim.Optimizer):
+    return [p for opt in opts for group in opt.param_groups for p in group["params"]]
+
+
+def _step(*opts: torch.optim.Optimizer) -> None:
+    """The gradients of the optimizers' parameters summed over the ranks
+    (one bucketed all-reduce for all of them), then each step taken."""
+    mesh.all_reduce_grads(_params(*opts))
+    for opt in opts:
+        opt.step()
+
+
 def _apply(*updates) -> None:
-    """Each ``(optimizer, lr)``: the gradients of its parameters summed over
-    the ranks (one bucketed all-reduce for all of them), its rate set and
-    its step taken."""
-    mesh.all_reduce_grads([p for opt, _ in updates for group in opt.param_groups
-                           for p in group["params"]])
+    """Each ``(optimizer, lr)``: its rate set, then ``_step`` of them all."""
     for opt, lr in updates:
         set_lr(opt, lr)
-    for opt, _ in updates:
-        opt.step()
+    _step(*(opt for opt, _ in updates))
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]  # the static inputs
+    outputs: Dict[str, torch.Tensor]
+    grads: list  # each parameter's gradient as the graph writes it (or None)
+
+
+def _out_of_memory(e: Optional[BaseException]) -> bool:
+    """Whether ``e``, or an exception it was raised while handling, says the
+    device ran out of memory: an allocation that fails inside a capture
+    surfaces as the CUDA error of ``capture_end``."""
+    while e is not None:
+        if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
+class StepGraphs:
+    """A training step with its optimizer steps, ``body(*inputs)`` returning
+    its metrics, as one CUDA graph per shape of ``inputs``, all in one memory
+    pool; ``params`` are the parameters the step gives gradients. The body
+    comes with each call, so the graphs hold no reference to its owner and
+    go, pool and all, when the owner does.
+
+    A shape's first call runs ``body`` eagerly on the capture stream, then
+    captures it there without running it: the static inputs are copies of
+    the call's inputs, the gradients are set to None so that the captured
+    backward writes them fresh from the pool, and the call leaves ``.grad``
+    as its eager step left it. A later call of the shape copies its inputs
+    into the static ones and replays; the metrics come back cloned, and
+    ``.grad`` is pointed at that graph's gradients.
+
+    What the body counts on the host (its spans, the recorder's counters,
+    each kernel wrapper's ``launches``) it counts in the eager step and again
+    in the capture, which records each launch into the graph; a replay runs
+    on the device alone and counts only ``step.graph_replays``. A capture
+    that runs out of device memory raises ``torch.cuda.OutOfMemoryError``
+    once it is torn down, and leaves the shape uncaptured."""
+
+    def __init__(self, params: Sequence[torch.Tensor]):
+        self.params = list(params)
+        self.graphs: Dict[Tuple, _Captured] = {}
+        self.stream = None
+        self.pool = None
+        self.live: Optional[_Captured] = None  # the graph whose gradients .grad holds
+
+    def __call__(self, body: Callable[..., Dict[str, torch.Tensor]], *inputs: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._first(body, key, inputs)
+        count("step.graph_replays")
+        for static, t in zip(g.inputs, inputs):
+            static.copy_(t)
+        g.graph.replay()
+        if self.live is not g:
+            for p, grad in zip(self.params, g.grads):
+                p.grad = grad
+            self.live = g
+        return {k: v.clone() for k, v in g.outputs.items()}
+
+    def _first(self, body, key, inputs) -> Dict[str, torch.Tensor]:
+        count("step.eager")
+        dev = inputs[0].device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        here = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(here)
+        torch.cuda.empty_cache()  # blocks cached for other streams cannot serve this one
+        try:
+            with torch.cuda.stream(self.stream):
+                out = body(*inputs)
+                self.graphs[key] = self._capture(body, inputs)
+        finally:
+            here.wait_stream(self.stream)
+        return out
+
+    def _capture(self, body, inputs) -> _Captured:
+        count("step.graph_captures")
+        static = tuple(t.clone() for t in inputs)
+        eager_grads = [p.grad for p in self.params]
+        for p in self.params:
+            p.grad = None
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = body(*static)
+            grads = [p.grad for p in self.params]
+        except Exception as e:
+            if not _out_of_memory(e):
+                raise
+            del graph
+            torch.cuda.empty_cache()
+            raise torch.cuda.OutOfMemoryError(
+                f"out of memory while capturing a step in a CUDA graph: {e}") from e
+        finally:
+            for p, grad in zip(self.params, eager_grads):
+                p.grad = grad
+        self.pool = graph.pool()
+        self.live = None
+        return _Captured(graph, static, outputs, grads)
 
 
 def _reported(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -143,12 +285,12 @@ class USSSSteps:
         if not ssim_metric and ssim_weight != 0:
             raise ValueError("ssim_metric=False requires ssim_weight == 0")
         self.G, self.S = generator, segmentor
-        ck = rematerialized if remat else (lambda fn, *modules: fn)
-        self._g_fwd = ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)
-        self._s_fwd = ck(lambda x, y: _nhwc(self.S(_nchw(x), _nchw(y))), self.S)
-        self._cnet_ck = ck(self._cnet)
-        self._cnet_ck_pre = ck(lambda *a: self._cnet(*a, target_grad=False))
+        self.remat = remat
+        # a function, not a closure over self: the steps hold no reference
+        # cycle, so the joint graphs' pool goes as soon as they do
+        self._ck = rematerialized if remat else _as_is
         self.opt_g, self.opt_s = opt_g, opt_s
+        self._joint_graphs = StepGraphs(_params(opt_g, opt_s))
         self.vgg = vgg
         self.pc = perception
         self.pw, self.l1w, self.sw = perception_weight, l1_weight, ssim_weight
@@ -159,6 +301,18 @@ class USSSSteps:
         self.prob_thresh = prob_thresh
         self.msw = tuple(msssim_weights) if msssim_weights is not None else None
         self.ssim_metric = ssim_metric
+
+    def _g_fwd(self, x):
+        return self._ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)(x)
+
+    def _s_fwd(self, x, y):
+        return self._ck(lambda x, y: _nhwc(self.S(_nchw(x), _nchw(y))), self.S)(x, y)
+
+    def _cnet_ck(self, *args):
+        return self._ck(self._cnet)(*args)
+
+    def _cnet_ck_pre(self, *args):
+        return self._ck(lambda *a: self._cnet(*a, target_grad=False))(*args)
 
     def _cnet(self, y, y_fake, cmap, w, target_grad=True):
         return L.cnet_loss(
@@ -212,29 +366,59 @@ class USSSSteps:
 
     # -- phase 3: joint alternating with G-gradient accumulation (:289-400) --
     def joint(self, x, y, ref, item, w, lr_g, lr_s) -> Dict[str, torch.Tensor]:
+        """One joint step: replayed as a CUDA graph unless ``eager_because``
+        names a reason (see the module's docstring)."""
         with span("step"):
             self.G.train()
             self.S.train()
-            with span("step.forward"):
-                y_fake = self._g_fwd(x)
-                cmap = self._s_fwd(x, y)
-            with span("step.loss"):
-                gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
-                a = gen + self.pw * perc + self.sw * ssim  # == LossG
-                net_loss = a + self.l1w * l1
-            with span("step.backward"):
-                self.opt_g.zero_grad(set_to_none=True)
-                self.opt_s.zero_grad(set_to_none=True)
-                net_loss.backward()
-            with span("step.optimizer"):
-                with torch.no_grad():  # dLossG/dG + dNetLoss/dG
-                    for p in self.G.parameters():
-                        if p.grad is not None:
-                            p.grad.mul_(2.0)
-                _apply((self.opt_g, lr_g), (self.opt_s, lr_s))
-            m = self._metrics(net_loss, gen, l1, perc, ssim)
-            m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
-            return m
+            graphed = self.eager_because(x.device) is None
+            if graphed:
+                make_capturable(self.opt_g)
+                make_capturable(self.opt_s)
+            set_lr(self.opt_g, lr_g)
+            set_lr(self.opt_s, lr_s)
+            if graphed:
+                return self._joint_graphs(self._joint, x, y, ref, item, w)
+            count("step.eager")
+            return self._joint(x, y, ref, item, w)
+
+    def eager_because(self, device: torch.device) -> Optional[str]:
+        """Why a joint step on ``device`` runs eagerly; None when it runs as
+        a CUDA graph."""
+        if device.type != "cuda":
+            return "not a CUDA device"
+        if mesh.active():
+            return "a process group"
+        if self.remat:
+            return "remat"
+        if torch.is_anomaly_enabled():
+            return "anomaly detection"
+        if not (capturable(self.opt_g) and capturable(self.opt_s)):
+            return "an optimizer step that cannot be captured"
+        return None
+
+    def _joint(self, x, y, ref, item, w) -> Dict[str, torch.Tensor]:
+        """The joint step's body, G and S in train mode and the rates set."""
+        with span("step.forward"):
+            y_fake = self._g_fwd(x)
+            cmap = self._s_fwd(x, y)
+        with span("step.loss"):
+            gen, l1, perc, ssim = self._cnet_ck(y, y_fake, cmap, w)
+            a = gen + self.pw * perc + self.sw * ssim  # == LossG
+            net_loss = a + self.l1w * l1
+        with span("step.backward"):
+            self.opt_g.zero_grad(set_to_none=True)
+            self.opt_s.zero_grad(set_to_none=True)
+            net_loss.backward()
+        with span("step.optimizer"):
+            with torch.no_grad():  # dLossG/dG + dNetLoss/dG
+                for p in self.G.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(2.0)
+            _step(self.opt_g, self.opt_s)
+        m = self._metrics(net_loss, gen, l1, perc, ssim)
+        m["confusion"] = self._confusion(cmap.detach(), ref, item, w)
+        return m
 
     # -- inference (:404-473) -------------------------------------------------
     @torch.no_grad()

@@ -887,3 +887,211 @@ def test_remat_step_leaves_the_step_buffers():
             assert int(b1[k]) == int(v) == 1, k
         else:
             assert bool(((b1[k] - v).abs() <= 1e-2 * v.abs() + 1e-4).all()), k
+
+
+# -- the joint step as a CUDA graph ---------------------------------------------
+GRAPH_CALLS = [(10, 1e-4), (10, 1e-4), (1, 1e-4), (10, 5e-5), (1, 5e-5), (10, 5e-5)]
+
+
+def _graph_batches(patch=220, pad=10):
+    """The calls' batches (10 tiles and the 1-tile tail) on the card."""
+    gen = _card_generator(14)
+    out = []
+    for b, _ in GRAPH_CALLS:
+        x = torch.rand((b, patch, patch, 3), generator=gen, device="cuda")
+        y = (x + 0.1 * torch.randn(x.shape, generator=gen, device="cuda")).clamp(0, 1)
+        ref = torch.randint(1, 3, (b, patch, patch, 1), generator=gen, device="cuda").float()
+        item = torch.randint(0, 12, (b,), generator=gen, device="cuda")
+        out.append((x, y, ref, item, torch.ones(b, device="cuda")))
+    return out
+
+
+def _usss_steps(graphed, patch=220, pad=10, remat=False, layout="leaf"):
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.train.optim import build
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+    torch.manual_seed(0)
+    g = Generator(3, compute_dtype=torch.bfloat16).cuda()
+    s = Segmentor(3, compute_dtype=torch.bfloat16).cuda()
+    st = USSSSteps(g, s, build(g.parameters(), "adam", layout),
+                   build(s.parameters(), "adam", layout),
+                   VGG16Weights(vgg16_random_params(0), "cuda"),
+                   PerceptionConfig((29,), True, torch.bfloat16), 0.4, 0.65, 0.0,
+                   np.array([[patch - 2 * pad] * 2] * 12), (pad, pad), remat=remat)
+    if not graphed:
+        st.eager_because = lambda device: "eager by the test"
+    return st
+
+
+def _run_graph_calls(graphed):
+    """The calls of ``GRAPH_CALLS`` from the same seeded state: each call's
+    metrics as returned (kept to the end) and as read to the host right
+    after the call, the state after the last (parameters, gradients, BN
+    buffers, Adam's moments and step counts) and each call's counters."""
+    from fcdgan_tpu_torch.utils.timing import recording
+
+    st = _usss_steps(graphed)
+    ms, read, counters = [], [], []
+    for (_, lr), batch in zip(GRAPH_CALLS, _graph_batches()):
+        with recording() as rec:
+            ms.append(st.joint(*batch, lr, lr))
+        counters.append(dict(rec.counters))
+        read.append({k: v.cpu() for k, v in ms[-1].items()})
+    torch.cuda.synchronize()
+    state = {}
+    for name, net, opt in (("G", st.G, st.opt_g), ("S", st.S, st.opt_s)):
+        for k, p in net.named_parameters():
+            state[f"{name}.{k}"] = p.detach().clone()
+            if p.grad is not None:
+                state[f"{name}.{k}.grad"] = p.grad.clone()
+            for sk, v in opt.state.get(p, {}).items():
+                state[f"{name}.{k}.{sk}"] = v.clone()
+        for k, b in net.named_buffers():
+            state[f"{name}.{k}"] = b.clone()
+    for m, r in zip(ms, read):  # later calls left each call's metrics alone
+        assert all(torch.equal(m[k].cpu(), r[k]) for k in r)
+    return ms, state, counters
+
+
+def _worst_gap(a, b):
+    """The largest relative gap, norm of the difference over the norm, of
+    the tensors the two dicts share."""
+    return max(float((a[k].double() - b[k].double()).norm())
+               / max(float(b[k].double().norm()), 1e-30) for k in b)
+
+
+@pytest.mark.cuda
+def test_graphed_joint_step_is_the_eager_step():
+    """Six bf16 joint calls at the cell's shapes (10 tiles and the 1-tile
+    tail, both twice or more, the rate changed between them), graphed and
+    eager from the same state: every parameter, gradient, BN buffer, Adam
+    moment and returned metric within four times what two eager runs differ
+    by (cuDNN's weight gradients do not repeat bitwise) and never tighter
+    than f32 rounding (1e-6); the counts (num_batches_tracked, Adam's step)
+    exact. One eager call and one capture per shape, every other call a
+    replay; a shape's first call counts the eager run's other counters
+    twice (its eager step and its capture), a replay none of them; and the
+    metrics a caller kept unchanged by later calls (``_run_graph_calls``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m_e1, s_e1, c_e1 = _run_graph_calls(graphed=False)
+    m_e2, s_e2, _ = _run_graph_calls(graphed=False)
+    m_g, s_g, c_g = _run_graph_calls(graphed=True)
+    assert all(c.get("step.eager") == 1 and "step.graph_captures" not in c for c in c_e1)
+    firsts = {i for i, (b, _) in enumerate(GRAPH_CALLS)
+              if b not in [bb for bb, _ in GRAPH_CALLS[:i]]}
+    assert firsts == {0, 2}
+    for i, (cg, ce) in enumerate(zip(c_g, c_e1)):
+        if i in firsts:
+            others = {k: 2 * n for k, n in ce.items() if not k.startswith("step.")}
+            assert cg == {**others, "step.eager": 1, "step.graph_captures": 1}, i
+        else:
+            assert cg == {"step.graph_replays": 1}, i
+    assert set(s_g) == set(s_e1)
+    counts = [k for k in s_e1 if k.endswith(("num_batches_tracked", ".step"))]
+    for k in counts:  # the eager run's Adam keeps its step counts on the host
+        assert torch.equal(s_g[k].cpu(), s_e1[k].cpu()), k
+    floats = [k for k in s_e1 if k not in counts]
+    tol = max(4 * _worst_gap({k: s_e2[k] for k in floats}, {k: s_e1[k] for k in floats}),
+              1e-6)
+    assert _worst_gap({k: s_g[k] for k in floats}, {k: s_e1[k] for k in floats}) <= tol
+    for i, (mg, me1, me2) in enumerate(zip(m_g, m_e1, m_e2)):
+        tol_m = max(4 * _worst_gap(me2, me1), 1e-6)
+        assert _worst_gap(mg, me1) <= tol_m, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,layout", [(True, "leaf"), (False, "flat"),
+                                          (False, "grouped")])
+def test_joint_step_stays_eager_where_no_graph_fits(remat, layout):
+    """With ``remat`` or a layout optimizer every joint call on the card is
+    eager: nothing captured, nothing replayed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.utils.timing import recording
+
+    st = _usss_steps(True, remat=remat, layout=layout)
+    assert st.eager_because(torch.device("cuda")) is not None
+    batches = _graph_batches()
+    with recording() as rec:
+        for (x, y, ref, item, w) in (batches[0], batches[1], batches[2]):
+            m = st.joint(x, y, ref, item, w, 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    assert rec.counters.get("step.eager") == 3
+    assert "step.graph_captures" not in rec.counters and "step.graph_replays" not in rec.counters
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
+    if layout == "leaf":  # an Adam no graph took stays the plain one
+        assert all(isinstance(g["lr"], float) and not g["capturable"]
+                   for opt in (st.opt_g, st.opt_s) for g in opt.param_groups)
+
+
+@pytest.mark.cuda
+def test_a_capture_out_of_memory_is_the_sweeps_oom_row(monkeypatch):
+    """A batch whose capture does not fit the card: an allocation far past
+    its memory inside the capture (the eager step before it fits) comes out
+    of the joint step as ``torch.cuda.OutOfMemoryError``, so
+    ``bench_batch_sweep`` prints the batch's -1 row and retries it with
+    remat, whose eager steps run; the card then runs a graphed step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.tools import bench
+    from fcdgan_tpu_torch.train.steps import USSSSteps
+
+    body = USSSSteps._joint
+
+    def too_big_to_capture(self, *args):
+        if torch.cuda.is_current_stream_capturing():
+            torch.empty(1 << 46, dtype=torch.uint8, device="cuda")
+        return body(self, *args)
+
+    monkeypatch.setattr(USSSSteps, "_joint", too_big_to_capture)
+    rows = bench.bench_batch_sweep(torch.device("cuda", 0), batches=(2,), n_steps=2)
+    assert [(r["metric"], r["value"] > 0, r.get("error")) for r in rows] == [
+        ("usss_train_throughput_bs2", False, "OutOfMemoryError"),
+        ("usss_train_throughput_bs2_remat", True, None)]
+    monkeypatch.setattr(USSSSteps, "_joint", body)
+    assert bench.bench_batch_sweep(torch.device("cuda", 0), batches=(2,), n_steps=2)[0][
+        "value"] > 0
+
+
+@pytest.mark.cuda
+def test_a_graphed_steps_state_resumes_on_either_device(tmp_path):
+    """The Adams of graphed joint steps, saved by ``TrainCheckpointer``,
+    load into the plain Adams ``build`` makes: on the card, whose next joint
+    calls capture and replay again; and on the CPU, whose step runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fcdgan_tpu_torch.io.checkpoint import TrainCheckpointer
+    from fcdgan_tpu_torch.train import optim
+    from fcdgan_tpu_torch.utils.timing import recording
+
+    batches = _graph_batches()
+    st = _usss_steps(True)
+    for batch in batches[:2]:
+        st.joint(*batch, 1e-4, 1e-4)
+    assert isinstance(st.opt_s.param_groups[0]["lr"], torch.Tensor)
+    ck = TrainCheckpointer(str(tmp_path / "ck"), every=1)
+    ck.maybe_save("joint", 0, netG=(st.G, st.opt_g), netS=(st.S, st.opt_s))
+    card = _usss_steps(True)
+    ck.restore({"netG": (card.G, card.opt_g), "netS": (card.S, card.opt_s)})
+    assert isinstance(card.opt_s.param_groups[0]["lr"], float)
+    with recording() as rec:
+        for batch in batches[:2]:
+            m = card.joint(*batch, 1e-4, 1e-4)
+    assert rec.counters == {"step.eager": 1, "step.graph_captures": 1,
+                            "step.graph_replays": 1}
+    assert bool(torch.isfinite(m["NetLoss"]))
+    ps = [torch.nn.Parameter(p.detach().cpu()) for p in st.S.parameters()]
+    cpu = optim.build(ps, "adam", "leaf")
+    cpu.load_state_dict(torch.load(str(tmp_path / "ck" / "netS.pt"), map_location="cpu",
+                                   weights_only=True)["optimizer"])
+    group = cpu.param_groups[0]
+    assert isinstance(group["lr"], float) and not group["capturable"]
+    before = [p.detach().clone() for p in ps]
+    for p in ps:
+        p.grad = torch.ones_like(p)
+    cpu.step()
+    assert all(not torch.equal(p, q) for p, q in zip(ps, before))

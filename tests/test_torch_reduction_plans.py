@@ -283,3 +283,17 @@ def test_ticket_arrays_grow_to_the_call(need):
         assert counters(table, ("dev", "stream"), smaller, zeros) is got
     assert counters(table, ("dev", "other stream"), 1, zeros) is not got
     assert len(made) == (2 if need <= MAX_TICKETS else 3)
+
+
+def test_a_replaced_ticket_array_stays_alive():
+    """A larger array replaces a stream's counters, and the old one is kept:
+    a CUDA graph captured on the stream still holds its address."""
+    from fcdgan_tpu_torch.ops import tickets
+
+    table = {}
+    first = tickets.counters(table, ("dev", "stream"), MAX_TICKETS,
+                             lambda n: torch.zeros(n, dtype=torch.int32))
+    bigger = tickets.counters(table, ("dev", "stream"), 4 * MAX_TICKETS,
+                              lambda n: torch.zeros(n, dtype=torch.int32))
+    assert bigger is not first and table[("dev", "stream")] is bigger
+    assert any(t is first for t in tickets._REPLACED)
