@@ -1,0 +1,7 @@
+"""Host ms in the evaluator and the image writes over the Mpx of the profiled slice sets."""
+
+from benchmark.program_spans import ms_per_mpx
+
+
+def read(record):
+    return ms_per_mpx(record, "serve", "serve.slices.write")

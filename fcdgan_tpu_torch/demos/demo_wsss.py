@@ -22,10 +22,10 @@ slice loaders (``native``: ``NativeWHUPairBatchLoader`` and
 (on the unchanged slices) and ``--random-assign`` run on the Python loaders
 only, as in the JAX package: the resident stacks refuse both, the native
 loaders the eraser, the native pair loader a random pairing. The final
-inference reads the changed slices from the resident stacks, or through
-``BatchLoader``, and writes its images on a writer thread while the next
-batch's forward runs (``eval.inference.run_overlapped``,
-demo_wsss.py:307-347).
+inference serves the changed slices from the resident stacks, or through
+``BatchLoader``, with ``eval.inference.slice_inference``, which writes the
+images on a writer thread while the next batch's forward runs
+(demo_wsss.py:307-347).
 
 The training options are the JAX driver's (see ``demo_usss``):
 ``--siamese-stats split`` (here for S and D), ``--remat``, ``--tail pad``,
@@ -58,7 +58,6 @@ import random
 import time
 from typing import Dict
 
-import numpy as np
 import torch
 
 from ..config import WSSSConfig, batch_tail, check_training_options, parse_cli
@@ -68,11 +67,9 @@ from ..data.device_cache import DeviceWHUCache, IndexBatchLoader, IndexPairBatch
 from ..data.normalize import Normalize
 from ..data.pipeline import (BatchLoader, NativeWHUBatchLoader, NativeWHUPairBatchLoader,
                              PairBatchLoader, device_put_batch, prefetch)
-from ..data.raster import read_image, write_image
+from ..data.raster import read_image
 from ..data.stats import dataset_meanstd
-from ..eval.changemap import write_changemap
-from ..eval.evaluator import Evaluator
-from ..eval.inference import run_overlapped
+from ..eval.inference import slice_inference
 from ..io.checkpoint import TrainCheckpointer, model_g_reuse, save_net
 from ..io.records import ScalarWriter, segmentation_summary, write_para_txt
 from ..models.discriminator import Discriminator
@@ -86,7 +83,6 @@ from ..train.loops import EpochAverages, Progress, accuracy_line, nan_checked
 from ..train.optim import adam, rmsprop
 from ..train.steps import PerceptionConfig, WSSSSteps
 from ..utils.device import resolve_device
-from ..utils.download import Download
 from ..utils.timing import maybe_profile
 from .demo_usss import _DTYPES, _log_accuracy
 
@@ -306,49 +302,29 @@ def _train(cfg: WSSSConfig) -> Dict:
     print("Saving Change Map and Model")
     print("Segmentation of Change")
     t0 = time.perf_counter()
-    acc = Evaluator(num_class=2)
     # the changed slices from the resident stacks, else through BatchLoader
-    # (demo_wsss.py:297-305)
-    # (with --tail pad the duplicates of a padded tail enter S's batch
-    # statistics, as in the JAX driver, and are not written; under a process
-    # group each rank runs its slice of the batch with the global statistics,
-    # and the densities are gathered before the writes, demo_wsss.py:318-327);
-    # a writer thread writes while the next batch's forward runs
-    # (``run_overlapped``, demo_wsss.py:307-347)
+    # (demo_wsss.py:297-305); with --tail pad the duplicates of a padded tail
+    # enter S's batch statistics, as in the JAX driver, and are not written;
+    # under a process group each rank runs its slice of the batch with the
+    # global statistics, and the densities are gathered before the writes
+    # (demo_wsss.py:318-327)
     tail = batch_tail(cfg)
     test_loader = (IndexBatchLoader(pair_ds.c_len, cfg.batch_size, tail=tail)
                    if cache is not None
                    else BatchLoader(c_ds, cfg.batch_size, fields=FIELDS, tail=tail))
 
-    def compute(batch):  # the caller's thread: every rank, in order (the gather)
+    def place(batch, infer):  # every rank, in order (the gather)
         local = put_multihost(batch)
         db = cache.complete_c(local) if cache is not None else _put(local, ("x", "y"), device)
-        return Download(mesh.gather(steps.infer_train_mode(db["x"], db["y"])))
+        return mesh.gather(infer(db["x"], db["y"]))
 
-    def process(dl: Download, batch):  # the writer thread (demo_wsss.py:323-345)
-        if not mesh.writes():
-            return
-        cmap = dl.result().numpy()[..., 0]
-        cmask = (cmap > cfg.prob_thresh).astype(np.int16)
-        for ns, item in enumerate(batch["item"]):
-            if batch["weight"][ns] == 0:
-                continue
-            item = int(item)
-            if cache is not None:
-                ref_mask = cache.cref_host[item, :, :, 0].astype(np.int16)
-            else:
-                ref_mask = batch["ref"][ns][:, :, 0].astype(np.int16)
-            acc.add_batch_map(ref_mask, cmask[ns])
-            name = c_ds.get_file_name(int(item))
-            if cfg.write_grey:
-                write_image(os.path.join(out_density_dir, name),
-                            np.uint8(cmap[ns] * 255))
-            change_write = write_changemap(cmask[ns], ref_mask, cfg.write_color)
-            if change_write.ndim == 3:
-                change_write = change_write.transpose((1, 2, 0))
-            write_image(os.path.join(out_dir, name), np.uint8(change_write))
-
-    run_overlapped(prefetch(iter(test_loader), cfg.prefetch_depth), compute, process)
+    res = slice_inference(
+        c_ds, net_s, cfg.batch_size, device, out_dir,
+        out_density_dir if cfg.write_grey else None, prob_thresh=cfg.prob_thresh,
+        write_color=cfg.write_color, batches=test_loader, place=place,
+        ref_of=(lambda batch, row, item: cache.cref_host[item, :, :, 0]) if cache is not None
+        else None, prefetch_depth=cfg.prefetch_depth)
+    acc = res["evaluator"]
     seconds["infer"] = time.perf_counter() - t0
     print("\rSegmentation, " + segmentation_summary(acc))
     print("\r" + "End of Saving", flush=True)

@@ -24,12 +24,21 @@ Port of the JAX package's ``eval/inference.py`` (:27-307) on one device:
     its slice of each batch (``mesh.split_apply``); the densities are
     gathered to every rank before the writes, which the writing ranks do.
 
+  * ``slice_inference`` serves a WHU slice set (Demo_WSSS.py:387-445)
+    through a given Segmentor, in train-mode BN (the reference's) or eval
+    mode: the slice reads behind ``prefetch``, the upload, the pass in
+    batches, the download, the evaluator and two images a slice (the grey
+    density and the eval or color map), written on ``run_overlapped``'s
+    writer thread. ``tools/infer.py --mode whu`` serves through its host
+    loader; the WSSS driver's final inference through its resident stacks.
+
 Models here are NHWC functions ``infer(x, y) -> (B, h, w, 1)`` float32
 (``nhwc_infer`` wraps the NCHW Segmentor).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -39,12 +48,15 @@ import numpy as np
 import torch
 
 from .. import native
+from .changemap import write_changemap
+from .evaluator import Evaluator
 from ..data.device_cache import DeviceSceneCache, DeviceSceneWindowCache
 from ..data.pipeline import (BatchLoader, DeviceNormalizer, NativeSceneBatchLoader,
                              device_put_batch, prefetch, upload)
+from ..data.raster import write_image
 from ..parallel import mesh
 from ..utils.download import Download, check_density_dtype, dequantize, quantize
-from ..utils.timing import span
+from ..utils.timing import count, open_ids, span, within
 
 
 def nhwc_infer(model) -> Callable:
@@ -95,21 +107,25 @@ def run_overlapped(batches, compute: Callable, process: Callable, depth: int = 4
     ``result()`` waits on an event recorded behind the copy, never a device
     tensor that the producer's stream may still be writing. An error in
     ``process`` stops the producer at its next batch, the queued jobs are
-    drained unprocessed, and the error is raised here."""
+    drained unprocessed, and the error is raised here. Spans that ``process``
+    opens nest under the spans open on the caller's thread here
+    (``utils.timing.within``)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
     err = []
+    parents = open_ids()
 
     def writer():
-        while True:
-            job = q.get()
-            if job is sentinel:
-                return
-            if not err:
-                try:
-                    process(*job)
-                except BaseException as e:  # re-raised on the caller's thread
-                    err.append(e)
+        with within(parents):
+            while True:
+                job = q.get()
+                if job is sentinel:
+                    return
+                if not err:
+                    try:
+                        process(*job)
+                    except BaseException as e:  # re-raised on the caller's thread
+                        err.append(e)
 
     wt = threading.Thread(target=writer, daemon=True)
     wt.start()
@@ -244,3 +260,136 @@ def _serve(dataset, model, batch_size, device, device_feed, density_dtype, trans
                    depth=writer_depth)
     dataset.close_outputs()
     return {"density": None, "pixels": pixels, "fused": False, "feed": feed}
+
+
+_SLICE_FIELDS = ("x", "y", "ref", "item", "label")
+
+
+@torch.no_grad()
+def slice_inference(dataset, model, batch_size: int, device, out_dir: str,
+                    density_dir: Optional[str] = None, train_bn: bool = True,
+                    prob_thresh: float = 0.5, write_color: bool = True, batches=None,
+                    place: Optional[Callable] = None, ref_of: Optional[Callable] = None,
+                    keep_densities: bool = False, prefetch_depth: int = 2,
+                    on_written: Optional[Callable[[int], None]] = None) -> dict:
+    """The slices of ``dataset`` (a ``WHUDataset``) through the Segmentor
+    ``model`` on ``device``: for each slice, the eval map (or color map) as
+    ``out_dir/<slice name>`` and, with ``density_dir``, the grey density
+    (density * 255) there, as the reference's final inference writes them
+    (Demo_WSSS.py:387-445).
+
+    ``train_bn`` runs S in train mode, as the reference does ("train mode
+    gets better performance", :389-391): each batch normalizes with its own
+    statistics (the ``channel_sums`` kernel on the card), and S's running
+    buffers move from batch to batch. Otherwise S runs in eval mode.
+
+    ``batches`` are host batches with ``item`` and ``weight`` (0 on a padded
+    duplicate, which is run but not written), by default ``BatchLoader``
+    over ``dataset`` in its order, read ahead by ``prefetch``.
+    ``place(batch, infer)`` puts a batch on the device and returns
+    ``infer(x, y)`` of its rows, (n, H, W, 1) float32, the rows in the
+    batch's order; by default it uploads the real slices only in train mode
+    (the wrap-padded tail's duplicates would skew the statistics) and every
+    row in eval mode, spread over the ranks of a process group by
+    ``mesh.split_apply``. ``ref_of(batch, row, item)`` is the (H, W) change
+    reference of a slice, by default the batch's ``ref``. ``on_written(n)``
+    gets the number of slices written after each batch's writes.
+
+    Returns {"slices", "pixels", "seconds", "evaluator", "densities"}: the
+    slices written, their pixels, the seconds of the whole call, the
+    evaluator of the thresholded densities against the references, and with
+    ``keep_densities`` {item: (H, W) float32 density} as downloaded (else
+    None). Spans: ``serve.slices`` (the whole call) and inside it
+    ``serve.slices.read`` (the wait for the next batch's reads),
+    ``serve.slices.pass`` (placement, upload and the pass's enqueue), and on
+    the writer thread ``serve.slices.download`` (the wait for the density
+    on the host) and ``serve.slices.write`` (the evaluator and the image
+    writes); counters ``serve.slices_written`` and ``serve.write_bytes``
+    (the images' bytes)."""
+    device = torch.device(device)
+    model.train(train_bn)
+    infer = nhwc_infer(model)
+    if batches is None:
+        batches = BatchLoader(dataset, batch_size, fields=_SLICE_FIELDS, shuffle=False)
+    if place is None:
+        place = _host_slices(device, train_bn)
+    if ref_of is None:
+        ref_of = _batch_ref
+    acc = Evaluator(num_class=2)
+    densities = {} if keep_densities else None
+    done = pixels = 0
+
+    def compute(batch):
+        nonlocal pixels
+        with span("serve.slices.pass"):
+            d = place(batch, infer)
+            pixels += d.shape[1] * d.shape[2] * int((np.asarray(batch["weight"]) > 0).sum())
+            return Download(d)
+
+    def process(dl: Download, batch):
+        nonlocal done
+        if not mesh.writes():
+            return
+        with span("serve.slices.download"):
+            cmap = dl.result().numpy()[..., 0]
+        with span("serve.slices.write"):
+            cmask = (cmap > prob_thresh).astype(np.int16)
+            for ns in range(min(len(cmap), len(batch["weight"]))):
+                if batch["weight"][ns] == 0:
+                    continue
+                item = int(batch["item"][ns])
+                ref_mask = ref_of(batch, ns, item).astype(np.int16)
+                acc.add_batch_map(ref_mask, cmask[ns])
+                name = dataset.get_file_name(item)
+                nbytes = 0
+                if density_dir:
+                    grey = np.uint8(cmap[ns] * 255)
+                    write_image(os.path.join(density_dir, name), grey)
+                    nbytes += grey.nbytes
+                change = write_changemap(cmask[ns], ref_mask, write_color)
+                if change.ndim == 3:
+                    change = change.transpose((1, 2, 0))
+                change = np.uint8(change)
+                write_image(os.path.join(out_dir, name), change)
+                if densities is not None:
+                    densities[item] = cmap[ns]
+                done += 1
+                count("serve.slices_written")
+                count("serve.write_bytes", nbytes + change.nbytes)
+        if on_written is not None:
+            on_written(done)
+
+    with span("serve.slices"):
+        t0 = time.perf_counter()
+        run_overlapped(_timed_reads(prefetch(iter(batches), prefetch_depth)), compute,
+                       process)
+        seconds = time.perf_counter() - t0
+    return {"slices": done, "pixels": pixels, "seconds": seconds, "evaluator": acc,
+            "densities": densities}
+
+
+def _timed_reads(batches):
+    """``batches``, the wait for each one a ``serve.slices.read`` span."""
+    it = iter(batches)
+    while True:
+        with span("serve.slices.read"):
+            b = next(it, None)
+        if b is None:
+            return
+        yield b
+
+
+def _batch_ref(batch, row: int, item: int) -> np.ndarray:
+    return batch["ref"][row][:, :, 0]
+
+
+def _host_slices(device: torch.device, train_bn: bool) -> Callable:
+    """``slice_inference``'s default placement of host batches."""
+    def place(batch, infer):
+        n = int(batch["weight"].sum()) if train_bn else len(batch["weight"])
+        return mesh.split_apply(
+            lambda b: infer(upload(np.ascontiguousarray(b["x"]), device),
+                            upload(np.ascontiguousarray(b["y"]), device)),
+            {k: batch[k][:n] for k in ("x", "y", "weight")})
+
+    return place

@@ -302,14 +302,8 @@ def run_whu(cfg: InferConfig, device: torch.device) -> Dict:
     statistics."""
     from ..data.datasets import WHUDataset
     from ..data.normalize import Normalize
-    from ..data.pipeline import BatchLoader, prefetch
-    from ..data.raster import write_image
     from ..data.stats import dataset_meanstd
-    from ..eval.changemap import write_changemap
-    from ..eval.evaluator import Evaluator
-    from ..eval.inference import nhwc_infer, run_overlapped, upload
-    from ..parallel import mesh
-    from ..utils.download import Download
+    from ..eval.inference import slice_inference
 
     if not (cfg.img_dir_x and cfg.img_dir_y and cfg.ref_dir and cfg.label_dir):
         raise SystemExit("whu mode needs --img-dir-x/--img-dir-y/--ref-dir/--label-dir")
@@ -326,57 +320,13 @@ def run_whu(cfg: InferConfig, device: torch.device) -> Dict:
     scaler = Normalize(*dataset_meanstd(sp1, sp2, stats_ds))
     ds = WHUDataset(cfg.img_dir_x, cfg.img_dir_y, cfg.ref_dir, cfg.label_dir,
                     label_selected=cfg.label_selected, scale=scaler)
-    h, w, nband = ds[0][0].shape
-    net = _segmentor(cfg, device, nband)
-    if cfg.bn_mode == "train":
-        net.train()
-    infer = nhwc_infer(net)
-
-    loader = BatchLoader(ds, cfg.batch_size, fields=("x", "y", "ref", "item", "label"),
-                         shuffle=False)
-    acc = Evaluator(num_class=2)
-    pixels = 0
-    done = 0
-    t0 = time.perf_counter()
-
-    def forward(b):
-        return infer(upload(np.ascontiguousarray(b["x"]), device),
-                     upload(np.ascontiguousarray(b["y"]), device))
-
-    def compute(batch):
-        nonlocal pixels
-        n_real = int(batch["weight"].sum())
-        pixels += h * w * n_real
-        n = n_real if cfg.bn_mode == "train" else len(batch["weight"])
-        # train mode: the real slices only, as the reference's short tail
-        return Download(mesh.split_apply(forward, {k: batch[k][:n]
-                                                   for k in ("x", "y", "weight")}))
-
-    def process(dl: Download, batch):
-        nonlocal done
-        if not mesh.writes():
-            return
-        cmap = dl.result().numpy()
-        cmask = (cmap > cfg.prob_thresh).astype(np.int16)
-        for ns in range(len(cmap)):
-            if batch["weight"][ns] == 0:
-                continue
-            item = int(batch["item"][ns])
-            change_mask = cmask[ns, :, :, 0]
-            ref_mask = batch["ref"][ns][:, :, 0]
-            acc.add_batch_map(ref_mask.astype(np.int16), change_mask)
-            name = ds.get_file_name(item)
-            if cfg.write_grey:
-                write_image(os.path.join(out_density_dir, name), np.uint8(cmap[ns, :, :, 0] * 255))
-            change_write = write_changemap(change_mask, ref_mask, cfg.write_color)
-            if change_write.ndim == 3:
-                change_write = change_write.transpose((1, 2, 0))
-            write_image(os.path.join(out_dir, name), np.uint8(change_write))
-            done += 1
-        _progress(cfg, done, len(ds))
-
-    run_overlapped(prefetch(iter(loader), cfg.prefetch_depth), compute, process)
-    seconds = time.perf_counter() - t0
+    net = _segmentor(cfg, device, ds[0][0].shape[-1])
+    res = slice_inference(ds, net, cfg.batch_size, device, out_dir,
+                          out_density_dir if cfg.write_grey else None,
+                          train_bn=cfg.bn_mode == "train", prob_thresh=cfg.prob_thresh,
+                          write_color=cfg.write_color, prefetch_depth=cfg.prefetch_depth,
+                          on_written=lambda done: _progress(cfg, done, len(ds)))
+    acc, pixels, seconds = res["evaluator"], res["pixels"], res["seconds"]
     if cfg.progress:
         print("\r", end="", flush=True)
     miou, ciou = acc.Mean_Intersection_over_Union()

@@ -4,8 +4,9 @@ regional supervised modes (JAX ``train/steps.py``).
 ``USSSSteps`` holds the Generator, the Segmentor, their optimizers and the
 loss configuration, and runs one batch of each reference phase
 (Demo_USSS.py:124-400) plus inference (:404-473). ``WSSSSteps`` does the
-same for the G pretrain (Demo_WSSS.py:140-204), the adversarial S/D step
-(:235-343) and the final train-mode-BN inference (:387-445); ``RSSSSteps``
+same for the G pretrain (Demo_WSSS.py:140-204) and the adversarial S/D
+step (:235-343); its final train-mode-BN inference (:387-445) is
+``eval.inference.slice_inference``. ``RSSSSteps``
 for the G pretrain (Demo_RSSS.py:173-238), the adversarial step with a
 region-synthesized unchanged pair (:244-397), the per-epoch test
 evaluation (:399-447) and the final inference. Batches are NHWC float32
@@ -450,7 +451,12 @@ class WSSSSteps:
         the changed pair masked by the live map; its gradients go into S's
         parameters only (``torch.autograd.grad``), so it never steps D, and
         D's BN statistics move on all three of its forwards.
-    Each step leaves each stepped net's gradients in ``.grad``."""
+    Each step leaves each stepped net's gradients in ``.grad``. The step is
+    the span ``adv``, its phases ``adv.s_forward`` (both S forwards),
+    ``adv.d_update`` (D's two forwards, its backward and RMSprop),
+    ``adv.s_loss`` (the frozen G, the D re-evaluation, the cgenerator loss
+    and the sums), ``adv.s_backward`` (``autograd.grad`` into S) and
+    ``adv.s_optimizer`` (``utils.timing``)."""
 
     def __init__(self, generator, segmentor, discriminator, opt_g, opt_s, opt_d,
                  vgg: VGG16Weights, perception: PerceptionConfig, perception_weight: float,
@@ -502,46 +508,56 @@ class WSSSSteps:
     # -- adversarial D-then-S step (Demo_WSSS.py:235-343) -------------------
     def adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
                     ) -> Dict[str, torch.Tensor]:
+        with span("adv"):
+            return self._adversarial(c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d)
+
+    def _adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
+                     ) -> Dict[str, torch.Tensor]:
         self.G.eval()
         self.S.train()
         self.D.train()
-        cmap = _nhwc(self.S(_nchw(c_x), _nchw(c_y)))
-        ncmap = _nhwc(self.S(_nchw(nc_x), _nchw(nc_y)))
+        with span("adv.s_forward"):
+            cmap = _nhwc(self.S(_nchw(c_x), _nchw(c_y)))
+            ncmap = _nhwc(self.S(_nchw(nc_x), _nchw(nc_y)))
 
         # D update: the masks are data, the gradients go into D only
-        cmask = (cmap if self.continuous else L.hard_mask(cmap)).detach()
-        keep = 1 - cmask
-        c_out = self._d(c_x * keep, c_y * keep)  # D's BN statistics: c, then nc
-        nc_out = self._d(nc_x * keep, nc_y * keep)
-        d_loss = mesh.lead_share(1.0) + _wmean(nc_out, w) - _wmean(c_out, w)
-        self.opt_d.zero_grad(set_to_none=True)
-        d_loss.backward()
-        _apply((self.opt_d, lr_d))
+        with span("adv.d_update"):
+            cmask = (cmap if self.continuous else L.hard_mask(cmap)).detach()
+            keep = 1 - cmask
+            c_out = self._d(c_x * keep, c_y * keep)  # D's BN statistics: c, then nc
+            nc_out = self._d(nc_x * keep, nc_y * keep)
+            d_loss = mesh.lead_share(1.0) + _wmean(nc_out, w) - _wmean(c_out, w)
+            self.opt_d.zero_grad(set_to_none=True)
+            d_loss.backward()
+            _apply((self.opt_d, lr_d))
 
-        # the frozen G (eval mode, Demo_WSSS.py:206)
-        y_fake = None
-        if self.gw != 0:
-            with torch.no_grad():
-                y_fake = _nhwc(self.G(_nchw(c_x)))
+        with span("adv.s_loss"):
+            # the frozen G (eval mode, Demo_WSSS.py:206)
+            y_fake = None
+            if self.gw != 0:
+                with torch.no_grad():
+                    y_fake = _nhwc(self.G(_nchw(c_x)))
 
-        # S loss against the updated D
-        keep = 1 - (cmap if self.continuous else L.hard_mask(cmap))
-        s_d_loss = _wmean(self._d(c_x * keep, c_y * keep), w)
-        nc_loss = _wmean(ncmap.square().mean(dim=(1, 2, 3)), w)
-        if y_fake is not None:
-            gen, ssim, perc = self._cgen_ck(c_y, y_fake, cmap, w)
-        else:
-            gen = ssim = perc = torch.zeros((), dtype=c_x.dtype, device=c_x.device)
-        g_loss = gen + self.pw * perc + self.sw * ssim
-        l1_loss = _wmean(cmap.abs().mean(dim=(1, 2, 3)), w)
-        s_loss = (self.dw * s_d_loss + self.l1w * l1_loss + self.gw * g_loss
-                  + self.ncw * nc_loss)
-        params = [p for p in self.S.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(s_loss, params, allow_unused=True)
-        self.opt_s.zero_grad(set_to_none=True)
-        for p, g in zip(params, grads):
-            p.grad = g
-        _apply((self.opt_s, lr_s))
+            # S loss against the updated D
+            keep = 1 - (cmap if self.continuous else L.hard_mask(cmap))
+            s_d_loss = _wmean(self._d(c_x * keep, c_y * keep), w)
+            nc_loss = _wmean(ncmap.square().mean(dim=(1, 2, 3)), w)
+            if y_fake is not None:
+                gen, ssim, perc = self._cgen_ck(c_y, y_fake, cmap, w)
+            else:
+                gen = ssim = perc = torch.zeros((), dtype=c_x.dtype, device=c_x.device)
+            g_loss = gen + self.pw * perc + self.sw * ssim
+            l1_loss = _wmean(cmap.abs().mean(dim=(1, 2, 3)), w)
+            s_loss = (self.dw * s_d_loss + self.l1w * l1_loss + self.gw * g_loss
+                      + self.ncw * nc_loss)
+        with span("adv.s_backward"):
+            params = [p for p in self.S.parameters() if p.requires_grad]
+            grads = torch.autograd.grad(s_loss, params, allow_unused=True)
+        with span("adv.s_optimizer"):
+            self.opt_s.zero_grad(set_to_none=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+            _apply((self.opt_s, lr_s))
 
         # in-training eval on the changed pair, full patch (Demo_WSSS.py:337-343)
         with torch.no_grad():
@@ -553,16 +569,6 @@ class WSSSSteps:
                           "nc_loss": nc_loss.detach(), "g_loss": g_loss.detach(),
                           "generator_loss": gen.detach(), "ssim_loss": ssim.detach(),
                           "perception_loss": perc.detach(), "confusion": cm})
-
-    # -- final inference, train-mode BN (Demo_WSSS.py:387-445) --------------
-    @torch.no_grad()
-    def infer_train_mode(self, x, y) -> torch.Tensor:
-        """The change density (B, H, W, 1) f32 of NHWC pairs with S in train
-        mode, as the reference ("train mode gets better performance",
-        Demo_WSSS.py:389-391): S's BN running statistics move on every call,
-        before SModel is saved."""
-        self.S.train()
-        return _nhwc(self.S(_nchw(x), _nchw(y)))
 
 
 class RSSSSteps:

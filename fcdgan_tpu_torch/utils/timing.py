@@ -133,6 +133,26 @@ def span(name: str):
     return _Span(rec, name)
 
 
+def open_ids() -> tuple:
+    """The ids of the spans open on this thread, outermost first."""
+    return tuple(getattr(_open, "stack", None) or ())
+
+
+@contextlib.contextmanager
+def within(ids: tuple) -> Iterator[None]:
+    """Spans opened on this thread inside the block nest under ``ids`` (an
+    ``open_ids()`` of another thread), as if they were opened there: a
+    worker's spans under the span that started the worker. Such a child
+    overlaps its parent's children on the other thread, so the parent's
+    ``self_seconds`` may come out below zero."""
+    before = getattr(_open, "stack", None)
+    _open.stack = list(ids)
+    try:
+        yield
+    finally:
+        _open.stack = before if before is not None else []
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while a ``recording()`` is open."""
     rec = _recording

@@ -35,6 +35,7 @@ from fcdgan_tpu.train.steps import PerceptionConfig as JaxPerception
 from fcdgan_tpu.train.steps import WSSSSteps as JaxSteps
 from fcdgan_tpu.train.steps import _wmean
 from fcdgan_tpu_torch.data import datasets as pds
+from fcdgan_tpu_torch.eval.inference import nhwc_infer
 from fcdgan_tpu_torch.io.torch_interop import from_jax_variables
 from fcdgan_tpu_torch.models.discriminator import Discriminator
 from fcdgan_tpu_torch.models.generator import Generator
@@ -359,8 +360,10 @@ def _step(jx, phase, batch, eps=0.0, seed=0):
     elif phase == "adversarial":
         m = steps.adversarial(t["c_x"], t["c_y"], t["c_ref"], t["nc_x"], t["nc_y"], t["w"],
                               1e-4, LR_D)
-    else:
-        m = {"density": steps.infer_train_mode(t["c_x"], t["c_y"])}
+    else:  # slice_inference's pass: S in train mode, no gradients
+        nets["s"].train()
+        with torch.no_grad():
+            m = {"density": nhwc_infer(nets["s"])(t["c_x"], t["c_y"])}
     grads = {n: {k: p.grad.numpy().copy() for k, p in net.named_parameters()
                  if p.grad is not None} for n, net in nets.items()}
     return m, nets, grads
