@@ -150,6 +150,12 @@ wgmma:
   resume   the train phase's scene with --checkpoint-every 1 stopped after
            the S init, then --resume: completed phases skipped, the restored
            state_dicts and Adam states bit-equal to the files; seconds a save
+  replay   the USSS joint step (batch 10 and a 1-tile tail) and the WSSS
+           adversarial step (15 pairs) as CUDA graphs: each shape's first
+           call counted twice by the kernel wrappers (its eager step and its
+           capture), then three replays under torch.profiler, each launching
+           every kernel as often as the step's derived count says, none of
+           them counted on the host
   profile  a USSS run under --profile-dir: the trace holds a CUDA event of
            each kernel it launched, by symbol
   wsss_split  one adversarial epoch of the wsss phase's set with split S
@@ -390,7 +396,7 @@ def device_launches(torch, fn, calls=3, traces=3):
                  and not getattr(ev, "is_user_annotation", False)]
         if names:
             break
-    per = -(-len(names) // calls)
+    per = max(-(-len(names) // calls), 1)  # every trace dropped: no names at all
     return [names[i:i + per] for i in range(0, len(names), per)] or [[]] * calls
 
 
@@ -621,11 +627,18 @@ def ssim_rows(torch):
 @contextlib.contextmanager
 def record_calls(module, name, clone=False):
     """Within the block, every call of ``module.name`` is kept in the yielded
-    list as (args, result); ``clone`` keeps copies of the tensor arguments."""
+    list as (args, result); ``clone`` keeps copies of the tensor arguments.
+    A call made while a CUDA graph is being captured computes nothing (a
+    graphed step's first call captures after its eager step), so it is not
+    kept."""
+    import torch
+
     orig, calls = getattr(module, name), []
 
     def wrapped(*args, **kw):
         out = orig(*args, **kw)
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return out
         kept = tuple(a.detach().clone() if clone and hasattr(a, "detach") else a
                      for a in args)
         calls.append((kept, out))
@@ -866,14 +879,15 @@ def _model_counts(torch, side, nband=3):
 
 
 @contextlib.contextmanager
-def joint_calls():
-    """Within the block, the USSS joint steps' counts as ``train.steps``
-    makes them (``step.eager``, ``step.graph_captures``,
-    ``step.graph_replays``), whether a recording is open or not. On the card
-    a batch shape's first joint call runs the step twice on the host, the
-    eager step and its capture, and the kernel wrappers count the launches
-    of both; a replay runs on the device alone, and the wrappers count none
-    of it (``replay_phase`` counts a replay's kernels on the device)."""
+def step_calls():
+    """Within the block, the counts of the USSS joint steps and the WSSS
+    adversarial steps as ``train.steps`` makes them (``step.eager``,
+    ``step.graph_captures``, ``step.graph_replays``), whether a recording
+    is open or not. On the card a batch shape's first call runs the step
+    twice on the host, the eager step and its capture, and the kernel
+    wrappers count the launches of both; a replay runs on the device alone,
+    and the wrappers count none of it (``replay_phase`` counts a replay's
+    kernels on the device)."""
     from fcdgan_tpu_torch.train import steps as steps_mod
 
     seen = collections.Counter()
@@ -890,11 +904,11 @@ def joint_calls():
         steps_mod.count = orig
 
 
-def host_joint_steps(n_joint, seen):
-    """Of ``n_joint`` joint steps (``seen``: their ``joint_calls``), the
+def host_steps(n_steps, seen):
+    """Of ``n_steps`` graphable steps (``seen``: their ``step_calls``), the
     passes whose launches the kernel wrappers count: every step but the
     replays, and each capture once more."""
-    return n_joint - seen["step.graph_replays"] + seen["step.graph_captures"]
+    return n_steps - seen["step.graph_replays"] + seen["step.graph_captures"]
 
 
 def _launch_totals(per_step, n_steps):
@@ -925,8 +939,8 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     stacked pass) forward and backward; a joint step both nets forward and
     backward; an inference chunk S in eval mode. ``split``: S's encoder runs
     once per branch (``_split_counts``), in eval mode too. ``seen``: the
-    run's ``joint_calls``, so that the joint steps are counted as the kernel
-    wrappers count them (``host_joint_steps``); without it, every step once,
+    run's ``step_calls``, so that the joint steps are counted as the kernel
+    wrappers count them (``host_steps``); without it, every step once,
     as the device runs them."""
     from fcdgan_tpu_torch.data.device_cache import serve_chunks
 
@@ -936,7 +950,7 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     n_steps = dict(zip(("g_pretrain", "s_init", "joint"), (e * steps for e in epochs)),
                    inference_chunk=chunks)
     if seen is not None:
-        n_steps["joint"] = host_joint_steps(n_steps["joint"], seen)
+        n_steps["joint"] = host_steps(n_steps["joint"], seen)
     sc, sb, sp, _ = _split_counts(k, split)
     gb, vp = k["g_bns"], k["vgg_pools"]
     gs_convs, levels = k["g_convs"] + sc, k["levels"]
@@ -952,19 +966,24 @@ def derived_launches(torch, n_tiles, epochs=TRAIN_EPOCHS, steps=None, chunks=Non
     return _launch_totals(per_step, n_steps), per_step
 
 
-def derived_wsss_launches(torch, epochs=WSSS_EPOCHS, split=False):
+def derived_wsss_launches(torch, epochs=WSSS_EPOCHS, split=False, seen=None):
     """Each kernel's launches in the wsss phase: a G-pretrain step as in
     USSS (RGB perception); an adversarial step runs S forward twice and
     backward through both, D forward three times and backward through all
     three (two in the D update, one in the S loss), G in eval mode and the
     VGG (one stacked pass) forward and backward; an inference chunk S in
     train mode without a graph. ``split``: S's encoder and D run once per
-    branch (``_split_counts``)."""
+    branch (``_split_counts``). ``seen``: the run's ``step_calls``, so that
+    the adversarial steps are counted as the kernel wrappers count them
+    (``host_steps``); without it, every step once, as the device runs
+    them."""
     k = _model_counts(torch, WSSS_SIZE)
     n_c, n_nc = WSSS_SLICES
     n_steps = {"g_pretrain": epochs[0] * -(-n_nc // WSSS_UNC_BATCH),
                "adversarial": epochs[1] * -(-max(n_c, n_nc) // WSSS_BATCH),
                "inference_chunk": -(-n_c // WSSS_BATCH)}
+    if seen is not None:
+        n_steps["adversarial"] = host_steps(n_steps["adversarial"], seen)
     sc, sb, sp, db = _split_counts(k, split)
     gb, vp = k["g_bns"], k["vgg_pools"]
     per_step = {
@@ -1256,7 +1275,7 @@ def train_phase(torch, work):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with joint_calls() as seen:
+    with step_calls() as seen:
         out = demo_usss.main(argv)
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
@@ -1292,7 +1311,7 @@ def train_phase(torch, work):
         "tile_mpx_per_s_warm": out["tiles"] * PATCH * PATCH * len(warm) / sum(warm) / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
-        "per_step": per_step, "joint_calls": dict(seen),
+        "per_step": per_step, "step_calls": dict(seen),
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
@@ -1433,12 +1452,12 @@ def wsss_phase(torch, work):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with first_step(WSSSSteps, "g_pretrain") as first:
+    with first_step(WSSSSteps, "g_pretrain") as first, step_calls() as seen:
         out = demo_wsss.main(argv)
     out["first_g_step"] = first
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want, per_step = derived_wsss_launches(torch)
+    want, per_step = derived_wsss_launches(torch, seen=seen)
     names = sorted(n for n in os.listdir(os.path.join(root, "before")) if n.endswith(".tif"))
     changed = [ln.split(",")[0] for ln in open(os.path.join(root, "label.txt")).read().split()
                if ln.endswith(",1")]
@@ -1468,6 +1487,8 @@ def wsss_phase(torch, work):
             ev.confusion_matrix.sum() == WSSS_SLICES[0] * WSSS_SIZE ** 2),
         "launches": launches == want,
         "conv3x3_all_wgmma": all_wgmma(launches, variants),
+        "adversarial_graphed": seen["step.graph_replays"] > 0
+        and seen["step.eager"] == seen["step.graph_captures"] > 0,
     }
     phase("wsss", {
         "seconds": seconds, "pairs": pairs, "slice_px": WSSS_SIZE,
@@ -1478,7 +1499,7 @@ def wsss_phase(torch, work):
         "slice_mpx_per_s_warm": 2 * pairs * WSSS_SIZE ** 2 * len(warm) / sum(warm) / 1e6,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "conv3x3_variants": variants, "derived_launches": want,
-        "per_step": per_step,
+        "per_step": per_step, "step_calls": dict(seen),
         "epoch_metrics": out["epoch_metrics"], **metrics, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"wsss checks failed: {checks}")
@@ -2105,7 +2126,7 @@ def usss_window_phase(torch, work, scene):
         for cache in ("on", "window"):
             reset_launches(counters)
             t0 = time.perf_counter()
-            with joint_calls() as seen:
+            with step_calls() as seen:
                 out = demo_usss.main(usss_args(work, f"_{cache}", "--scene-cache", cache))
             runs[cache] = (out, time.perf_counter() - t0, *launch_counts(counters), seen)
         n = runs["on"][0]["tiles"]
@@ -2181,7 +2202,7 @@ def usss_host_phase(torch, work, scene):
     counters = kernel_counters()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with joint_calls() as seen:
+    with step_calls() as seen:
         out = demo_usss.main(usss_args(work, "_host", "--scene-cache", "off"))
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
@@ -2300,11 +2321,11 @@ def wsss_host_phase(torch, root, wsss):
     counters = kernel_counters()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with first_step(WSSSSteps, "g_pretrain") as first:
+    with first_step(WSSSSteps, "g_pretrain") as first, step_calls() as seen:
         out = demo_wsss.main(argv)
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want = derived_wsss_launches(torch, (1, 2))[0]
+    want = derived_wsss_launches(torch, (1, 2), seen=seen)[0]
     scaler = Normalize(*dataset_meanstd(os.path.join(dirs[0], "stats_meanstd.txt"),
                                         os.path.join(dirs[1], "stats_meanstd.txt"), None))
     same_items, tiles_ok, batches = True, True, 0
@@ -2495,7 +2516,7 @@ def usss_split_phase(torch, tdir, joint):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with joint_calls() as seen:
+    with step_calls() as seen:
         out = demo_usss.main(train_args(tdir, "_split", SPLIT_EPOCHS, "--siamese-stats",
                                         "split"))
     seconds = time.perf_counter() - t0
@@ -2585,11 +2606,11 @@ def remat_phase(torch, tdir):
         for remat in (False, True):
             steps = make(dtype, remat)
             reset_launches(counters)
-            with joint_calls() as seen:
+            with step_calls() as seen:
                 m = steps.joint(*args)
             torch.cuda.synchronize()
             launches, _ = launch_counts(counters)
-            passes = host_joint_steps(1, seen)  # eager, and without remat its capture
+            passes = host_steps(1, seen)  # eager, and without remat its capture
             want = {n: passes * plain[n] + (again.get(n, 0) if remat else 0) for n in plain}
             checks[f"{dt_name}_{'remat' if remat else 'plain'}_launches"] = launches == want
             if remat and dt_name == "bfloat16":
@@ -2635,13 +2656,16 @@ def remat_phase(torch, tdir):
 
 
 def replay_phase(torch, tdir):
-    """The USSS joint step on the card as CUDA graphs, its replays counted
-    on the device: the train phase's settings (bf16, full-width G and S, per-band
-    perception at relu5_3) on BATCH tiles of its scene and on a 1-tile tail.
-    Each shape's first call is its eager step and its capture, which the
-    kernel wrappers count twice; then three replays under torch.profiler,
-    each of which launches every kernel, by its symbol, as often as the
-    joint step's derived count says (``derived_launches``; channel_sums and
+    """The USSS joint step and the WSSS adversarial step on the card as CUDA
+    graphs, their replays counted on the device: the joint step at the
+    train phase's settings (bf16, full-width G and S, per-band perception at
+    relu5_3) on BATCH tiles of its scene and on a 1-tile tail, the
+    adversarial step at the wsss phase's (``tools.bench.wsss_setup``: bf16,
+    15 pairs of 200 px, RGB perception at layer 1). Each shape's first call
+    is its eager step and its capture, which the kernel wrappers count
+    twice; then three replays under torch.profiler, each of which launches
+    every kernel, by its symbol, as often as the step's derived count says
+    (``derived_launches``, ``derived_wsss_launches``; channel_sums and
     channel_sums_pair share one symbol), while the wrappers count none."""
     from fcdgan_tpu_torch.data.datasets import ScenePairDataset
     from fcdgan_tpu_torch.data.device_cache import DeviceSceneCache
@@ -2650,8 +2674,34 @@ def replay_phase(torch, tdir):
     from fcdgan_tpu_torch.models.generator import Generator
     from fcdgan_tpu_torch.models.segmentor import Segmentor
     from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.tools import bench
     from fcdgan_tpu_torch.train.optim import adam
     from fcdgan_tpu_torch.train.steps import PerceptionConfig, USSSSteps
+
+    counters = kernel_counters()
+    res, checks = {}, {}
+
+    def replays(name, call, per_kind):
+        """``call``'s first call and three replays; ``per_kind``: each
+        kernel's derived launches in one step."""
+        want = {k: per_kind[k] for k in KERNEL_SYMBOLS}
+        want["channel_sums"] += per_kind["channel_sums_pair"]
+        reset_launches(counters)
+        with step_calls() as seen:
+            call()
+            first, _ = launch_counts(counters)
+            launched = device_launches(torch, call)
+            replayed, _ = launch_counts(counters)
+        got = [{k: sum(sym in n for n in names) for k, sym in KERNEL_SYMBOLS.items()}
+               for names in launched]
+        res[name] = {"device_launches_per_replay": got, "derived": want,
+                     "host_launches_first_call": first, "step_calls": dict(seen)}
+        checks[f"{name}_replays_launch_the_derived"] = all(g == want for g in got)
+        checks[f"{name}_first_call_counts_twice"] = first == {k: 2 * v
+                                                             for k, v in per_kind.items()}
+        checks[f"{name}_replays_not_counted_on_the_host"] = replayed == first
+        checks[f"{name}_calls"] = dict(seen) == {"step.eager": 1, "step.graph_captures": 1,
+                                                 "step.graph_replays": 4}
 
     scaler = Normalize(*dataset_meanstd(os.path.join(tdir, "T1_stats.txt"),
                                         os.path.join(tdir, "T2_stats.txt"), None))
@@ -2666,31 +2716,20 @@ def replay_phase(torch, tdir):
                       VGG16Weights(vgg16_random_params(0), "cuda"),
                       PerceptionConfig((29,), True, torch.bfloat16),
                       0.4, 0.65, 0.0, ds.grid.interior_sizes(), (PAD, PAD))
-    counters = kernel_counters()
     _, per_step = derived_launches(torch, BATCH)
     joint = {k: kinds.get("joint", 0) for k, kinds in per_step.items()}
-    want = {k: joint[k] for k in KERNEL_SYMBOLS}
-    want["channel_sums"] += joint["channel_sums_pair"]
-    res, checks = {}, {}
     for n in (BATCH, 1):
         db = cache.complete({"item": list(range(n)), "weight": [1.0] * n})
         args = (db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
-        reset_launches(counters)
-        with joint_calls() as seen:
-            steps.joint(*args)
-            first, _ = launch_counts(counters)
-            launched = device_launches(torch, lambda: steps.joint(*args))
-            replays, _ = launch_counts(counters)
-        got = [{k: sum(sym in name for name in names) for k, sym in KERNEL_SYMBOLS.items()}
-               for names in launched]
-        res[f"tiles{n}"] = {"device_launches_per_replay": got, "derived": want,
-                            "host_launches_first_call": first, "joint_calls": dict(seen)}
-        checks[f"tiles{n}_replays_launch_the_derived"] = all(g == want for g in got)
-        checks[f"tiles{n}_first_call_counts_twice"] = first == {k: 2 * v
-                                                               for k, v in joint.items()}
-        checks[f"tiles{n}_replays_not_counted_on_the_host"] = replays == first
-        checks[f"tiles{n}_calls"] = dict(seen) == {"step.eager": 1, "step.graph_captures": 1,
-                                                   "step.graph_replays": 4}
+        replays(f"tiles{n}", lambda: steps.joint(*args), joint)
+    del steps, cache, db, args
+    torch.cuda.empty_cache()
+    _, per_step = derived_wsss_launches(torch)
+    adv, args = bench.wsss_setup(torch.device("cuda", 0))
+    replays("adversarial", lambda: adv.adversarial(*args),
+            {k: kinds.get("adversarial", 0) for k, kinds in per_step.items()})
+    del adv, args
+    torch.cuda.empty_cache()
     phase("replay", {**res, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"replay checks failed: {checks}")
@@ -2738,7 +2777,7 @@ def resume_phase(torch, tdir):
         with open(os.path.join(ckdir, "meta.json")) as f:
             meta = json.load(f)
         reset_launches(counters)
-        with joint_calls() as seen:
+        with step_calls() as seen:
             second = demo_usss.main(train_args(tdir, "_resume", (1, 1, 1), "--resume", "true",
                                                "--save-checkpoints", "false"))
         launches, variants = launch_counts(counters)
@@ -2791,7 +2830,7 @@ def profile_phase(torch, tdir, work):
     counters = kernel_counters()
     reset_launches(counters)
     t0 = time.perf_counter()
-    with joint_calls() as seen:
+    with step_calls() as seen:
         out = demo_usss.main(train_args(tdir, "_prof", (1, 0, 1), "--profile-dir", prof,
                                         "--save-checkpoints", "false"))
     seconds = time.perf_counter() - t0
@@ -2818,7 +2857,7 @@ def profile_phase(torch, tdir, work):
     trace_mb = sum(os.path.getsize(os.path.join(prof, f)) for f in traces) / 1e6
     shutil.rmtree(prof)
     phase("profile", {"seconds": seconds, "trace_mb": trace_mb, "kernel_events": dict(events),
-                      "derived_kernel_events": on_device, "joint_calls": dict(seen),
+                      "derived_kernel_events": on_device, "step_calls": dict(seen),
                       "launches": launches, "derived_launches": want, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"profile checks failed: {checks}")
@@ -2839,17 +2878,20 @@ def wsss_split_phase(torch, root, wsss):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(counters)
     t0 = time.perf_counter()
-    out = demo_wsss.main(wsss_args(root, "_split", (WSSS_EPOCHS[0], 1), "--siamese-stats",
-                                   "split"))
+    with step_calls() as seen:
+        out = demo_wsss.main(wsss_args(root, "_split", (WSSS_EPOCHS[0], 1),
+                                       "--siamese-stats", "split"))
     seconds = time.perf_counter() - t0
     launches, variants = launch_counts(counters)
-    want, per_step = derived_wsss_launches(torch, (0, 1), split=True)
+    want, per_step = derived_wsss_launches(torch, (0, 1), split=True, seen=seen)
     names = sorted(os.listdir(out["density_dir"]))
     losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
     warm = wsss["epoch_seconds"]["adv"][1:]
     checks = {
         "split": out["sstate"].siamese_stats == out["dstate"].siamese_stats == "split",
         "g_reused": out["g_pretrain_epochs"] == 0,
+        "adversarial_graphed": seen["step.graph_replays"] > 0
+        and seen["step.eager"] == seen["step.graph_captures"] > 0,
         "maps": len(names) == WSSS_SLICES[0] and all(
             read_image(os.path.join(out["density_dir"], n)).shape == (WSSS_SIZE, WSSS_SIZE, 1)
             for n in names),
@@ -2860,7 +2902,8 @@ def wsss_split_phase(torch, root, wsss):
         "joint_mode_adv_epochs_per_s_warm": len(warm) / sum(warm),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "derived_launches": want, "per_step": per_step,
-        "oa": float(out["evaluator"].Pixel_Accuracy()), "checks": checks})
+        "step_calls": dict(seen), "oa": float(out["evaluator"].Pixel_Accuracy()),
+        "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"wsss_split checks failed: {checks}")
     return launches, out
@@ -2874,16 +2917,19 @@ def wsss_eraser_run(torch, root, wsss):
 
     counters = kernel_counters()
     reset_launches(counters)
-    out = demo_wsss.main(wsss_args(root, "_eraser", (WSSS_EPOCHS[0], 1), "--random-eraser",
-                                   "true"))
+    with step_calls() as seen:
+        out = demo_wsss.main(wsss_args(root, "_eraser", (WSSS_EPOCHS[0], 1),
+                                       "--random-eraser", "true"))
     launches, variants = launch_counts(counters)
-    want, _ = derived_wsss_launches(torch, (0, 1))
+    want, _ = derived_wsss_launches(torch, (0, 1), seen=seen)
     losses = [v for ph in out["epoch_metrics"].values() for m in ph for v in m.values()]
     warm = wsss["epoch_seconds"]["adv"][1:]
     res = {"feed": out["feed"], "adv_epochs_per_s": 1.0 / out["epoch_seconds"]["adv"][0],
            "resident_adv_epochs_per_s_warm": len(warm) / sum(warm),
            "launches": launches, "derived_launches": want,
+           "step_calls": dict(seen),
            "checks": {"host_feed": out["feed"] == "host",
+                      "adversarial_graphed": seen["step.graph_replays"] > 0,
                       **_driver_checks(out, launches, variants, want, losses)}}
     return res
 
@@ -2951,13 +2997,13 @@ def dp_world1_phase(torch, tdir):
                        ("world1_b", ("--n-devices", "1")), ("no_group_b", ("--tail", "pad"))):
         reset_launches(counters)
         t0 = time.perf_counter()
-        with joint_calls() as seen:
+        with step_calls() as seen:
             out = demo_usss.main(train_args(tdir, f"_{tag}", TRAIN_EPOCHS, *extra))
         runs[tag] = {"out": out, "seconds": time.perf_counter() - t0,
-                     "launches": launch_counts(counters), "joint_calls": seen,
+                     "launches": launch_counts(counters), "step_calls": seen,
                      "density": open_raster(out["density_path"]).read_block()[..., 0]}
     n = runs["world1"]["out"]["tiles"]
-    want = {t: derived_launches(torch, n, seen=r["joint_calls"])[0] for t, r in runs.items()}
+    want = {t: derived_launches(torch, n, seen=r["step_calls"])[0] for t, r in runs.items()}
 
     def gaps(a, b):
         ra, rb = runs[a], runs[b]
@@ -2986,7 +3032,7 @@ def dp_world1_phase(torch, tdir):
         "epochs": all(len(em[t][ph]) == n for t in em
                       for ph, n in zip(("g", "s", "joint"), TRAIN_EPOCHS)),
         **{f"launches_{t}": r["launches"][0] == want[t] for t, r in runs.items()},
-        "world1_eager": all(not r["joint_calls"]["step.graph_captures"]
+        "world1_eager": all(not r["step_calls"]["step.graph_captures"]
                             for t, r in runs.items() if t.startswith("world1")),
         **{f"conv3x3_all_wgmma_{t}": all_wgmma(*r["launches"]) for t, r in runs.items()},
         "allreduces_cover_every_bn": prof[1]["allreduce_calls"] >= bn_passes,
@@ -3013,7 +3059,7 @@ def dp_world1_phase(torch, tdir):
         "device_busy_ms": {"world1": prof[1]["device_busy_ms"],
                            "no_group": prof[0]["device_busy_ms"]},
         "launches": runs["world1"]["launches"][0], "derived_launches": want["world1"],
-        "joint_calls": {t: dict(r["joint_calls"]) for t, r in runs.items()},
+        "step_calls": {t: dict(r["step_calls"]) for t, r in runs.items()},
         "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"dp_world1 checks failed: {checks}")
@@ -3055,8 +3101,8 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
     slices of the padded global batches (the whole batches without a group),
     from the seeded ``state``: per step, metrics, state dicts and the summed
     gradients on the CPU, the kernels' launches and the passes of the step
-    they count (a graphed joint step's first call: two, ``joint_calls``; an
-    eager step, as under a group: one). With ``seed`` each image element is
+    they count (a graphed step's first call: two, ``step_calls``; an eager
+    step, as under a group: one). With ``seed`` each image element is
     scaled by (1 + 1e-7 N(0, 1)), about one float32 rounding (the
     witness)."""
     from fcdgan_tpu_torch.data.datasets import ScenePairDataset
@@ -3111,9 +3157,9 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
     db = DeviceSceneCache(ds, scaler, "cuda").complete(mesh.shard_batch(usss))
     db["x"], db["y"] = scaled(db["x"]), scaled(db["y"])
     reset_launches(counters)
-    with joint_calls() as seen:
+    with step_calls() as seen:
         m = steps.joint(db["x"], db["y"], db["ref"], db["item"], db["weight"], 1e-4, 1e-4)
-    out["usss_joint"] = result(m, host_joint_steps(1, seen), g=g, s=s)
+    out["usss_joint"] = result(m, host_steps(1, seen), g=g, s=s)
     del steps, db
     g, s, d = nets("g", "s", "d")
     steps = WSSSSteps(g, s, d, adam(g.parameters()), rmsprop(s.parameters()),
@@ -3122,9 +3168,10 @@ def _dp_steps(torch, tdir, state, usss, wsss, seed=None):
     t = {k: scaled(torch.from_numpy(v).cuda()) if k.endswith(("_x", "_y"))
          else torch.from_numpy(v).cuda() for k, v in mesh.shard_batch(wsss).items()}
     reset_launches(counters)
-    m = steps.adversarial(t["c_x"], t["c_y"], t["c_ref"], t["nc_x"], t["nc_y"], t["weight"],
-                          1e-4, 5e-5)
-    out["wsss_adversarial"] = result(m, g=g, s=s, d=d)
+    with step_calls() as seen:
+        m = steps.adversarial(t["c_x"], t["c_y"], t["c_ref"], t["nc_x"], t["nc_y"],
+                              t["weight"], 1e-4, 5e-5)
+    out["wsss_adversarial"] = result(m, host_steps(1, seen), g=g, s=s, d=d)
     del steps
     gc.collect()
     return out
@@ -3328,7 +3375,7 @@ def bench_phase(torch):
     def run(name, fn, *args, **kw):
         reset_launches(counters)
         t0 = time.perf_counter()
-        with joint_calls() as calls[name]:
+        with step_calls() as calls[name]:
             runs[name] = fn(*args, **kw)
         launches[name] = launch_counts(counters)
         runs[name + "_seconds"] = time.perf_counter() - t0
@@ -3336,11 +3383,11 @@ def bench_phase(torch):
 
     def derived(name, per_step, kind, n_steps):
         got, variants = launches[name]
-        passes = host_joint_steps(n_steps, calls[name]) if kind == "joint" else n_steps
+        passes = host_steps(n_steps, calls[name])  # RSSS counts no step: n_steps
         want = {k: per_step[k].get(kind, 0) * passes for k in counters}
         checks[name + "_launches"] = got == want and all_wgmma(got, variants)
         return {"launches": got, "derived": want, "steps": n_steps,
-                "joint_calls": dict(calls[name])}
+                "step_calls": dict(calls[name])}
 
     torch.cuda.empty_cache()
     out = {}
@@ -3389,6 +3436,9 @@ def bench_phase(torch):
     checks["batch_sweep"] = sorted(by_bs) == [10, 20, 40, 80] and all(
         any(r["value"] > 0 for r in rs) and all(r["value"] > 0 or "error" in r for r in rs)
         for rs in by_bs.values())
+    gc.collect()
+    held = {"allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9}
     rows = run("scaling", bench.bench_scaling, dev, timeout=600)
     have = torch.cuda.device_count()
     checks["scaling"] = [r["metric"] for r in rows] == [
@@ -3401,7 +3451,8 @@ def bench_phase(torch):
         got, variants = launches[name]
         checks[name + "_all_six"] = all(got.values()) and all_wgmma(got, variants)
     phase("bench", {"seconds": {k: v for k, v in runs.items() if k.endswith("_seconds")},
-                    "driver_launches": out, "checks": checks})
+                    "driver_launches": out, "held_before_scaling": held,
+                    "scaling_rows": rows, "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"bench checks failed: {checks}")
     return {f"bench_{name}": o["launches"] for name, o in out.items()}

@@ -41,8 +41,9 @@ class TrainCheckpointer:
     ``maybe_save(phase, epoch, name=(module, optimizer), ...)`` writes, after
     every ``every``-th epoch of a phase, one ``{name}.pt`` per net holding its
     ``state_dict`` (parameters and BatchNorm buffers) and its optimizer's
-    (``train.optim.state_dict``: an Adam a CUDA graph made capturable is
-    saved as the plain one, so the file loads on any device), then ``meta.json`` with ``{"phase", "epoch"}`` (each file written to a
+    (``train.optim.state_dict``: an Adam or RMSprop a CUDA graph made
+    capturable is saved as the plain one, so the file loads on any device),
+    then ``meta.json`` with ``{"phase", "epoch"}`` (each file written to a
     temporary name and moved into place). ``restore`` loads them into the
     caller's modules and optimizers and returns the meta record, from which
     ``start_epochs`` gives each phase's first epoch. As in the JAX package,

@@ -721,6 +721,9 @@ def bench_scaling(device, ns: Sequence[int] = (1, 2, 4, 8), timeout: float = 180
         if torch.device(device).type == "cuda" and n > have:
             rows.append(_emit({**row, "error": f"need {n} devices, have {have}"}))
             continue
+        if torch.device(device).type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()  # this process's cached blocks, which a worker cannot use
         cmd = [sys.executable, "-m", "fcdgan_tpu_torch.tools.bench", "--scaling-worker",
                str(n), "--device", device, "--worker-kw", json.dumps(worker_kw)]
         try:

@@ -20,8 +20,8 @@ port, the other convolutions forward and backward, BN/elementwise, pooling
 and upsampling, the optimizer, gather/copy) and by kernel name (top
 ``--top``), and the layout copies (the recorder's counter
 ``layout.nhwc_copies``, ``ops/layout.py``) the step made before its
-kernels. On a card the USSS joint step is a CUDA graph by then
-(``train.steps.StepGraphs``): the profiled step is a replay
+kernels. On a card the USSS joint step and the WSSS adversarial step are
+CUDA graphs by then (``train.steps.StepGraphs``): the profiled step is a replay
 (``graph_replay``), whose kernels the trace shows without the host's
 ops, and whose layout copies, counted on the host, read null.
 ``--n-devices 1`` runs the step in a world of one (``parallel.mesh``:

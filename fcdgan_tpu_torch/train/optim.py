@@ -8,21 +8,22 @@ root, no momentum, not centered (Demo_WSSS.py:121-122, optim.py:210-249).
 The port sets the param group's learning rate once per epoch, which is the
 same arithmetic.
 
-A leaf Adam whose parameters are all on a card can be made capturable
-(``make_capturable``), so that its step runs inside a CUDA graph (the USSS
-joint step, ``train.steps.StepGraphs``, which does it at its first graphed
+A leaf Adam or RMSprop whose parameters are all on a card can be made
+capturable (``make_capturable``), so that its step runs inside a CUDA graph
+(the USSS joint step's Adams and the WSSS adversarial step's RMSprops,
+``train.steps.StepGraphs``, which does it at the step's first graphed
 call) and its rate still moves per epoch: the group turns
 ``capturable``, its rate becomes a 0-d tensor on the parameters' device
-and its step counts move there, as torch keeps them for a capturable Adam.
-``set_lr`` fills a tensor rate in place, and only when the value changes,
-so setting the same rate every step launches nothing and never waits for
-the device. ``build`` makes the plain Adam, with a float rate and
-torch's default step, and it stays so until a graph takes it: every Adam
-of WSSS and RSSS, the USSS Adams before the first joint step (the G
-pretrain, the S init), and every optimizer on the CPU. ``state_dict``
-saves a capturable Adam in the plain form, so a checkpoint loads on any
-device into the optimizer ``build`` makes; the next graphed step makes it
-capturable again.
+and its step counts move there, as torch keeps them for a capturable
+optimizer. ``set_lr`` fills a tensor rate in place, and only when the
+value changes, so setting the same rate every step launches nothing and
+never waits for the device. ``build`` makes the plain optimizer, with a
+float rate and torch's default step, and it stays so until a graph takes
+it: the Adams of the G pretrains, the USSS Adams before the first joint
+step (the S init), every optimizer of RSSS, and every optimizer on the
+CPU. ``state_dict`` saves a capturable optimizer in the plain form, so a
+checkpoint loads on any device into the optimizer ``build`` makes; the
+next graphed step makes it capturable again.
 
 The layout of the optimizer state is the JAX package's choice
 (``_opt_mode``, optim.py:26-52), read from the environment when an
@@ -223,9 +224,9 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
 
 def capturable(opt: torch.optim.Optimizer) -> bool:
     """Whether ``make_capturable`` can make ``opt``'s step one that a CUDA
-    graph holds, once its parameters are on a card: a leaf Adam (torch's
-    own, not fused)."""
-    return type(opt) is torch.optim.Adam and not any(
+    graph holds, once its parameters are on a card: a leaf Adam or RMSprop
+    (torch's own, not fused)."""
+    return type(opt) in (torch.optim.Adam, torch.optim.RMSprop) and not any(
         group.get("fused") for group in opt.param_groups)
 
 

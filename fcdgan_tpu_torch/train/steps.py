@@ -28,29 +28,32 @@ Gradient flow, as in the JAX package:
     ``step``, its phases ``step.forward``, ``step.loss``, ``step.backward``
     and ``step.optimizer`` (``utils.timing``).
 
-The joint step on a card is a CUDA graph (``StepGraphs``), one per shape of
-its batch, all in one memory pool: dispatching a step eagerly takes the
-host longer than the device takes to run it (thousands of small launches:
-the train-mode BatchNorms, the per-band VGG passes, the MS-SSIM levels,
-Adam). A shape's first call is an eager step on the stream the graph is
-captured on, which warms cuDNN, cuBLAS, the ticket counters and Adam's
-state; the same call then captures the step without running it. Every later
-call of that shape copies ``x``, ``y``, ``ref``, ``item`` and ``weight``
-into the graph's static inputs and replays it. The learning rates are not
-in the graph: the first graphed call makes both Adams capturable, with a
-tensor rate that ``set_lr`` fills (``train.optim.make_capturable``). The
+The USSS joint step and the WSSS adversarial step on a card are CUDA
+graphs (``StepGraphs``), one per shape of the step's batch, all of a step's
+in one memory pool: dispatching a step eagerly takes the host longer than
+the device takes to run it (thousands of small launches: the train-mode
+BatchNorms, the VGG passes, the MS-SSIM levels, the optimizers). A shape's
+first call is an eager step on the stream the graph is captured on, which
+warms cuDNN, cuBLAS, the ticket counters and the optimizers' state; the
+same call then captures the step without running it. Every later call of
+that shape copies the batch into the graph's static inputs and replays it.
+The learning rates are not in the graph: the first graphed call makes the
+step's optimizers (the two Adams of USSS, S's and D's RMSprops of WSSS)
+capturable, with a tensor rate that ``set_lr`` fills
+(``train.optim.make_capturable``). The WSSS graph holds both of its
+optimizer steps, D's ahead of S's loss, as the eager step runs them. The
 metrics come back cloned, so a caller may keep them; after a replay
 ``.grad`` holds that graph's gradients and the optimizers' moments are
 their own tensors, as after an eager step. The recorder counts
 ``step.eager``, ``step.graph_captures`` and ``step.graph_replays``. The
 phase spans, the other counters and the kernel wrappers' ``launches`` count
 on the host, in eager steps and during a capture; a replay adds none of
-them (its kernels show only on the device's trace). The step stays eager
-where it can see that a graph would not do: off CUDA, under a process group
-(``mesh.active()``), with ``remat``, with an optimizer whose step cannot be
-captured (the ``flat`` and ``grouped`` layouts), and under autograd anomaly
-detection (``--debug-nans``). The G pretrain, the S init and the WSSS and
-RSSS steps stay eager.
+them (its kernels show only on the device's trace). A step stays eager
+where it can see that a graph would not do (``eager_because``): off CUDA,
+under a process group (``mesh.active()``), with ``remat``, with an
+optimizer whose step cannot be captured (the ``flat`` and ``grouped``
+layouts), and under autograd anomaly detection (``--debug-nans``). The G
+pretrains, the S init and the RSSS steps stay eager.
 
 ``remat=True`` recomputes the forwards that the JAX steps wrap in
 ``jax.checkpoint`` (steps.py:139-150, 285-301, 491-504) in the backward:
@@ -149,6 +152,23 @@ def _apply(*updates) -> None:
     for opt, lr in updates:
         set_lr(opt, lr)
     _step(*(opt for opt, _ in updates))
+
+
+def _eager_because(device: torch.device, remat: bool, *opts: torch.optim.Optimizer
+                   ) -> Optional[str]:
+    """Why a step on ``device`` that steps ``opts`` runs eagerly; None when
+    it runs as a CUDA graph."""
+    if device.type != "cuda":
+        return "not a CUDA device"
+    if mesh.active():
+        return "a process group"
+    if remat:
+        return "remat"
+    if torch.is_anomaly_enabled():
+        return "anomaly detection"
+    if not all(capturable(opt) for opt in opts):
+        return "an optimizer step that cannot be captured"
+    return None
 
 
 @dataclasses.dataclass
@@ -386,17 +406,7 @@ class USSSSteps:
     def eager_because(self, device: torch.device) -> Optional[str]:
         """Why a joint step on ``device`` runs eagerly; None when it runs as
         a CUDA graph."""
-        if device.type != "cuda":
-            return "not a CUDA device"
-        if mesh.active():
-            return "a process group"
-        if self.remat:
-            return "remat"
-        if torch.is_anomaly_enabled():
-            return "anomaly detection"
-        if not (capturable(self.opt_g) and capturable(self.opt_s)):
-            return "an optimizer step that cannot be captured"
-        return None
+        return _eager_because(device, self.remat, self.opt_g, self.opt_s)
 
     def _joint(self, x, y, ref, item, w) -> Dict[str, torch.Tensor]:
         """The joint step's body, G and S in train mode and the rates set."""
@@ -451,12 +461,15 @@ class WSSSSteps:
         the changed pair masked by the live map; its gradients go into S's
         parameters only (``torch.autograd.grad``), so it never steps D, and
         D's BN statistics move on all three of its forwards.
-    Each step leaves each stepped net's gradients in ``.grad``. The step is
-    the span ``adv``, its phases ``adv.s_forward`` (both S forwards),
+    Each step leaves each stepped net's gradients in ``.grad``. On a card
+    the adversarial step is a CUDA graph per batch shape, with both
+    RMSprop steps inside it (see the module's docstring). The step is the
+    span ``adv``, its phases ``adv.s_forward`` (both S forwards),
     ``adv.d_update`` (D's two forwards, its backward and RMSprop),
     ``adv.s_loss`` (the frozen G, the D re-evaluation, the cgenerator loss
     and the sums), ``adv.s_backward`` (``autograd.grad`` into S) and
-    ``adv.s_optimizer`` (``utils.timing``)."""
+    ``adv.s_optimizer`` (``utils.timing``); the phases are recorded by
+    eager steps and captures, a replay records ``adv`` alone."""
 
     def __init__(self, generator, segmentor, discriminator, opt_g, opt_s, opt_d,
                  vgg: VGG16Weights, perception: PerceptionConfig, perception_weight: float,
@@ -468,11 +481,12 @@ class WSSSSteps:
         if not ssim_metric and ssim_weight != 0:
             raise ValueError("ssim_metric=False requires ssim_weight == 0")
         self.G, self.S, self.D = generator, segmentor, discriminator
-        ck = rematerialized if remat else (lambda fn, *modules: fn)
-        self._g_fwd = ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)
-        self._cgen_ck = ck(self._cgen)
-        self._cgen_ck_pre = ck(lambda *a: self._cgen(*a, target_grad=False))
+        self.remat = remat
+        # a function, not a closure over self: the steps hold no reference
+        # cycle, so the adversarial graphs' pool goes as soon as they do
+        self._ck = rematerialized if remat else _as_is
         self.opt_g, self.opt_s, self.opt_d = opt_g, opt_s, opt_d
+        self._adv_graphs = StepGraphs(_params(opt_s, opt_d))
         self.vgg = vgg
         self.pc = perception
         self.pw, self.sw = perception_weight, ssim_weight
@@ -481,6 +495,15 @@ class WSSSSteps:
         self.continuous = discriminator_continuous
         self.msw = tuple(msssim_weights) if msssim_weights is not None else None
         self.ssim_metric = ssim_metric
+
+    def _g_fwd(self, x):
+        return self._ck(lambda x: _nhwc(self.G(_nchw(x))), self.G)(x)
+
+    def _cgen_ck(self, *args):
+        return self._ck(self._cgen)(*args)
+
+    def _cgen_ck_pre(self, *args):
+        return self._ck(lambda *a: self._cgen(*a, target_grad=False))(*args)
 
     def _cgen(self, y, y_fake, cmap, w, target_grad=True):
         return L.cgenerator_loss(
@@ -508,14 +531,31 @@ class WSSSSteps:
     # -- adversarial D-then-S step (Demo_WSSS.py:235-343) -------------------
     def adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
                     ) -> Dict[str, torch.Tensor]:
+        """One adversarial step: replayed as a CUDA graph unless
+        ``eager_because`` names a reason (see the module's docstring)."""
         with span("adv"):
-            return self._adversarial(c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d)
+            self.G.eval()
+            self.S.train()
+            self.D.train()
+            graphed = self.eager_because(c_x.device) is None
+            if graphed:
+                make_capturable(self.opt_s)
+                make_capturable(self.opt_d)
+            set_lr(self.opt_s, lr_s)
+            set_lr(self.opt_d, lr_d)
+            if graphed:
+                return self._adv_graphs(self._adversarial, c_x, c_y, c_ref, nc_x, nc_y, w)
+            count("step.eager")
+            return self._adversarial(c_x, c_y, c_ref, nc_x, nc_y, w)
 
-    def _adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w, lr_s, lr_d
-                     ) -> Dict[str, torch.Tensor]:
-        self.G.eval()
-        self.S.train()
-        self.D.train()
+    def eager_because(self, device: torch.device) -> Optional[str]:
+        """Why an adversarial step on ``device`` runs eagerly; None when it
+        runs as a CUDA graph."""
+        return _eager_because(device, self.remat, self.opt_s, self.opt_d)
+
+    def _adversarial(self, c_x, c_y, c_ref, nc_x, nc_y, w) -> Dict[str, torch.Tensor]:
+        """The adversarial step's body, G, S and D in their modes and both
+        rates set."""
         with span("adv.s_forward"):
             cmap = _nhwc(self.S(_nchw(c_x), _nchw(c_y)))
             ncmap = _nhwc(self.S(_nchw(nc_x), _nchw(nc_y)))
@@ -529,7 +569,7 @@ class WSSSSteps:
             d_loss = mesh.lead_share(1.0) + _wmean(nc_out, w) - _wmean(c_out, w)
             self.opt_d.zero_grad(set_to_none=True)
             d_loss.backward()
-            _apply((self.opt_d, lr_d))
+            _step(self.opt_d)
 
         with span("adv.s_loss"):
             # the frozen G (eval mode, Demo_WSSS.py:206)
@@ -557,7 +597,7 @@ class WSSSSteps:
             self.opt_s.zero_grad(set_to_none=True)
             for p, g in zip(params, grads):
                 p.grad = g
-            _apply((self.opt_s, lr_s))
+            _step(self.opt_s)
 
         # in-training eval on the changed pair, full patch (Demo_WSSS.py:337-343)
         with torch.no_grad():

@@ -1095,3 +1095,131 @@ def test_a_graphed_steps_state_resumes_on_either_device(tmp_path):
         p.grad = torch.ones_like(p)
     cpu.step()
     assert all(not torch.equal(p, q) for p, q in zip(ps, before))
+
+
+# -- the WSSS adversarial step as a CUDA graph ----------------------------------
+ADV_SLICE, ADV_PAIRS = 64, 3
+ADV_RATES = ((1e-4, 1e-6), (5e-5, 5e-7))  # (S, D) of two epochs
+
+
+def _adv_batches(sizes, seed=15):
+    """(c_x, c_y, c_ref, nc_x, nc_y, w) of each size's pairs on the card."""
+    gen = _card_generator(seed)
+    out = []
+    for b in sizes:
+        shape = (b, ADV_SLICE, ADV_SLICE, 3)
+        c_x, nc_x = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+        c_ref = (torch.rand(shape[:3] + (1,), generator=gen, device="cuda") > 0.7).float()
+        out.append((c_x, c_x * 0.8 + 0.2 * c_ref, c_ref, nc_x,
+                    nc_x + 0.1 * torch.randn(shape, generator=gen, device="cuda"),
+                    torch.ones(b, device="cuda")))
+    return out
+
+
+def _wsss_steps(graphed, siamese_stats="joint", continuous=True):
+    from fcdgan_tpu_torch.models.discriminator import Discriminator
+    from fcdgan_tpu_torch.models.generator import Generator
+    from fcdgan_tpu_torch.models.segmentor import Segmentor
+    from fcdgan_tpu_torch.models.vgg import VGG16Weights, vgg16_random_params
+    from fcdgan_tpu_torch.train.optim import adam, rmsprop
+    from fcdgan_tpu_torch.train.steps import PerceptionConfig, WSSSSteps
+
+    torch.manual_seed(0)
+    g = Generator(3).cuda()
+    s = Segmentor(3, siamese_stats=siamese_stats).cuda()
+    d = Discriminator(3, siamese_stats=siamese_stats).cuda()
+    st = WSSSSteps(g, s, d, adam(g.parameters()), rmsprop(s.parameters()),
+                   rmsprop(d.parameters()), VGG16Weights(vgg16_random_params(0), "cuda"),
+                   PerceptionConfig((29,), False), 0.5, 0.0, 0.2, 1.6, 1.0, 1.5, 0.6,
+                   discriminator_continuous=continuous, msssim_weights=(0.5, 0.5))
+    if not graphed:
+        st.eager_because = lambda device: "eager by the test"
+    return st
+
+
+def _run_adv_calls(graphed, calls, **kw):
+    """The adversarial calls ``calls`` ((pairs, (lr_s, lr_d)) each) from
+    the same seeded state, in float32: each call's metrics, the state after
+    the last (S's and D's parameters, gradients, BN buffers, RMSprop
+    moments and step counts) and each call's counters."""
+    from fcdgan_tpu_torch.utils.timing import recording
+
+    st = _wsss_steps(graphed, **kw)
+    ms, counters = [], []
+    for (_, (lr_s, lr_d)), batch in zip(calls, _adv_batches([b for b, _ in calls])):
+        with recording() as rec:
+            ms.append(st.adversarial(*batch, lr_s, lr_d))
+        counters.append(dict(rec.counters))
+    torch.cuda.synchronize()
+    state = {}
+    for name, net, opt in (("S", st.S, st.opt_s), ("D", st.D, st.opt_d)):
+        for k, p in net.named_parameters():
+            state[f"{name}.{k}"] = p.detach().clone()
+            if p.grad is not None:
+                state[f"{name}.{k}.grad"] = p.grad.clone()
+            for sk, v in opt.state.get(p, {}).items():
+                state[f"{name}.{k}.{sk}"] = v.clone()
+        for k, b in net.named_buffers():
+            state[f"{name}.{k}"] = b.clone()
+    return [{k: v for k, v in m.items() if k != "confusion"} for m in ms], state, counters
+
+
+def _assert_graphed_adv_is_eager(calls, monkeypatch, **kw):
+    """``calls`` graphed and eager (twice) from the same state, with TF32 off:
+    every parameter, gradient, BN buffer, RMSprop moment and loss within
+    four times what two eager runs differ by and never tighter than f32
+    rounding (1e-6); the counts (num_batches_tracked, RMSprop's step)
+    exact. Returns the graphed run's counters per call."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    m_e1, s_e1, c_e1 = _run_adv_calls(False, calls, **kw)
+    m_e2, s_e2, _ = _run_adv_calls(False, calls, **kw)
+    m_g, s_g, c_g = _run_adv_calls(True, calls, **kw)
+    assert all(c == {"step.eager": 1} for c in (
+        {k: v for k, v in c.items() if k.startswith("step.")} for c in c_e1))
+    assert set(s_g) == set(s_e1)
+    counts = [k for k in s_e1 if k.endswith(("num_batches_tracked", ".step"))]
+    for k in counts:  # the eager run's RMSprops keep their step counts on the host
+        assert torch.equal(s_g[k].cpu(), s_e1[k].cpu()), k
+    floats = [k for k in s_e1 if k not in counts]
+    tol = max(4 * _worst_gap({k: s_e2[k] for k in floats}, {k: s_e1[k] for k in floats}),
+              1e-6)
+    assert _worst_gap({k: s_g[k] for k in floats}, {k: s_e1[k] for k in floats}) <= tol
+    for i, (mg, me1, me2) in enumerate(zip(m_g, m_e1, m_e2)):
+        assert _worst_gap(mg, me1) <= max(4 * _worst_gap(me2, me1), 1e-6), i
+    return [{k: v for k, v in c.items() if k.startswith("step.")} for c in c_g]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("siamese_stats,continuous", [("joint", True), ("split", False)])
+def test_graphed_adversarial_step_is_the_eager_step(siamese_stats, continuous, monkeypatch):
+    """Three float32 adversarial steps of one shape, graphed and eager from
+    one seeded state, agree (``_assert_graphed_adv_is_eager``): the first
+    call is the eager step and its capture, the other two replay, with D's
+    RMSprop step ahead of S's loss inside the graph; per-branch BN
+    statistics with D's hard mask capture as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    calls = [(ADV_PAIRS, ADV_RATES[0])] * 3
+    counters = _assert_graphed_adv_is_eager(calls, monkeypatch, siamese_stats=siamese_stats,
+                                            continuous=continuous)
+    total = {}
+    for c in counters:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    assert total == {"step.eager": 1, "step.graph_captures": 1, "step.graph_replays": 2}
+
+
+@pytest.mark.cuda
+def test_a_wsss_tail_is_captured_on_its_own_and_a_new_rate_replays(monkeypatch):
+    """A second batch shape (a one-pair tail) is captured on its own, and
+    the rates of a second epoch take effect on the replays of both shapes:
+    the graphed calls agree with the eager ones throughout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    calls = [(ADV_PAIRS, ADV_RATES[0]), (ADV_PAIRS, ADV_RATES[0]), (1, ADV_RATES[0]),
+             (ADV_PAIRS, ADV_RATES[1]), (1, ADV_RATES[1])]
+    counters = _assert_graphed_adv_is_eager(calls, monkeypatch)
+    first = {"step.eager": 1, "step.graph_captures": 1}
+    assert counters == [first, {"step.graph_replays": 1}, first, {"step.graph_replays": 1},
+                        {"step.graph_replays": 1}]

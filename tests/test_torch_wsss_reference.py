@@ -244,6 +244,23 @@ def test_the_adversarial_step_records_its_phases(one_torch_thread):
     assert any(not torch.equal(before[k], v) for k, v in _leaves(nets, "data").items())
 
 
+@pytest.mark.parametrize("counters,want", [
+    ({}, 0.0), ({"step.eager": 5}, 0.0),
+    ({"step.eager": 1, "step.graph_captures": 1, "step.graph_replays": 4}, 80.0),
+    ({"step.graph_replays": 5}, 100.0)])
+def test_graph_replay_share_reads_the_replays_of_the_profiled_steps(counters, want):
+    """``graph_replay_share.wsss``: the replays over the traced run's
+    profiled steps in %; 0 where the step counted none (an eager step, or a
+    program without the counter), nothing to read without a trace."""
+    from benchmark import harness
+
+    read = harness.metric_reader("graph_replay_share.wsss").read
+    record = {"kind": "train", "trace": {"units": 5}, "counters": counters}
+    assert read(record) == pytest.approx(want)
+    assert read({**record, "trace": None}) is None
+    assert read({**record, "kind": "serve"}) is None
+
+
 # -- the slice pass's work ---------------------------------------------------------
 @pytest.mark.parametrize("n,p", [(2, 48), (3, 40)])
 def test_slice_pass_flops_match_the_flop_counter(n, p):
@@ -286,7 +303,7 @@ def test_the_adversarial_cells_check_passes_the_program_and_fails_a_stuck_step(
     from fcdgan_tpu_torch.train import steps as program_steps
 
     if fault:
-        monkeypatch.setattr(program_steps, "_apply", lambda *pairs: None)
+        monkeypatch.setattr(program_steps, "_step", lambda *opts: None)
     ov = {"profile_steps": 1, "config": {"slice": 32, "batch": 2, "n_changed": 4,
                                          "n_unchanged": 4, "msssim_weights": [0.5, 0.5],
                                          "compute_dtype": "float32"}}
